@@ -1,14 +1,19 @@
 // ============================================================================
-// parse_events.cu - event-log parse kernel of the PyTorch/CUDA port.
+// parse_events.cu - event-log parse kernels of the PyTorch/CUDA port.
 //
-// Replaces: lzani_tpu/ops/pallas_v7.py make_parse_kernel_sim (the Pallas
-// TPU kernel launched by pallas_engine.py _get_group_step). It computes
-// the same function: for every (reference g, query b) pair of a group
-// dispatch, the greedy LZ-parse decision stream of the reference parser
+// Replaces two Pallas TPU kernels that compute the same function with
+// different candidate tables:
+//   * lzt_parse_events: lzani_tpu/ops/pallas_v7.py make_parse_kernel_sim,
+//     launched by pallas_engine.py _get_group_step (the group path);
+//   * lzt_parse_events_big: lzani_tpu/ops/pallas_engine.py:307
+//     make_parse_kernel(big=True), launched by _get_big_step at :1913
+//     (the long-genome path).
+// For every (reference g, query b) pair of a dispatch, both compute the
+// greedy LZ-parse decision stream of the reference parser
 // (parser.cpp:482-716; the C++ oracle is Parser::parse in
-// lzani_tpu/core/native/lzani_core.cpp). Each accepted match logs one
-// 8-int32 record {i, pos, len, bwd, ext, 0, 0, 0}; the host replays the
-// log through lza_replay_finalize, which rebuilds exact stats/regions and
+// csrc/lzani_core.cpp). Each accepted match logs one 8-int32 record
+// {i, pos, len, bwd, ext, 0, 0, 0}; the host replays the log through
+// lza_replay_finalize, which rebuilds exact stats/regions and
 // cross-checks bwd and ext.
 //
 // Design: one thread per pair running the scalar automaton of
@@ -19,9 +24,15 @@
 //     equals reference N = 4, so an msl-prefix match implies valid
 //     k-mers on both sides); longest wins, then nearest to pred, and an
 //     equal distance keeps the earlier position;
-//   * anchors: walk poslist[start : start+cnt] from cand = start<<7|cnt
-//     with an exact LCE; strict > keeps the smallest position; an anchor
-//     at position 0 is ignored only when synced;
+//   * anchors: walk poslist[start : start+cnt] with an exact LCE; strict
+//     > keeps the smallest position; an anchor at position 0 is ignored
+//     only when synced. The candidate table is a template parameter, so
+//     both kernels share one automaton:
+//       PackedCand   (group path) start << 7 | min(count, 127) per query
+//                    position; rows over CNT_CAP fall back on the host;
+//       TwoPlaneCand (long-genome path) a start plane and a count plane
+//                    per pair, counts unbounded (no pack, no CNT_CAP: the
+//                    reference's ht_long probe chains are unbounded too);
 //   * arbitration: the host-built WIN bit table (exact replica of the
 //     reference's f64 fpow comparison; no f64 on the device, so FMA
 //     contraction cannot break bit-exactness);
@@ -32,14 +43,21 @@
 //   * bwd cap: the pending literal factor after the region-kill merge,
 //     carried in (reg_lo, reg_hi, lit_below) as pallas_v7 does.
 // Symbols past a buffer's semantic end read as N (4 for the reference,
-// 5 for the query), which bounds every LCE and scan without caps.
+// 5 for the query), which bounds every LCE and scan without caps. The
+// query length dsz is per query on the group path and per pair on the
+// long-genome path, where the self pair gets dsz = msl (a no-op).
+// Offsets of the per-pair planes are size_t (pair x LqP exceeds 2^31 at
+// long-genome sizes); positions fit in int (LrP <= 2^25).
 //
 // What bounds it: chains of dependent global loads (byte loads of the
-// two buffers, cand/next_hit/poslist/WIN words), one step at a time per
-// pair, with heavy divergence across the 32 pairs of a warp. The working
-// set of a group (4 references x <= 1 MB, the queries) sits in L2, so
-// latency, not bandwidth, is the limit. A warp-per-pair design with
-// lane-parallel seed windows and LCEs is the next step (later work).
+// two buffers, candidate/next_hit/poslist/WIN words), one step at a time
+// per pair, with heavy divergence across the 32 pairs of a warp. On the
+// group path the working set (4 references x <= 1 MB, the queries) sits
+// in L2; on the long-genome path a pair streams megabases through L1
+// and L2 one line at a time, so a related pair's long forward extension
+// is a serial scan of one thread. Latency, not bandwidth, is the limit.
+// A warp-per-pair design with lane-parallel seed windows, LCEs and
+// extension scans is the next step (later work).
 // ============================================================================
 
 #include <cstdint>
@@ -104,13 +122,40 @@ __device__ int ext_scan(const Pair& P, const Cfg& c, int dpos, int rpos,
     return last;
 }
 
+// Group path: (G, B, LqP) words start << 7 | min(count, 127).
+struct PackedCand {
+    const int32_t* cd;
+    __device__ PackedCand(const int32_t* cand, int pair, int LqP)
+        : cd(cand + (size_t)pair * LqP) {}
+    __device__ __forceinline__ void get(int i, int& start, int& cnt) const {
+        const int cw = cd[i];
+        start = cw >> 7;
+        cnt = cw & 127;
+    }
+};
+
+// Long-genome path: (G, B, 2, LqP) planes, start then unbounded count.
+struct TwoPlaneCand {
+    const int32_t* st;
+    const int32_t* ct;
+    __device__ TwoPlaneCand(const int32_t* cand, int pair, int LqP)
+        : st(cand + (size_t)pair * 2 * LqP), ct(st + LqP) {}
+    __device__ __forceinline__ void get(int i, int& start, int& cnt) const {
+        start = st[i];
+        cnt = ct[i];
+    }
+};
+
+// dsz_per_pair: dszs is (G, B) (long-genome path) instead of (B,).
+template <class Cand>
 __global__ void parse_events_kernel(
     const uint8_t* __restrict__ refbuf, const uint8_t* __restrict__ qbuf,
     const int32_t* __restrict__ poslist, const int32_t* __restrict__ cand,
     const int32_t* __restrict__ next_hit, const uint32_t* __restrict__ win,
     const int32_t* __restrict__ dszs, const int32_t* __restrict__ nrs,
     int32_t* __restrict__ ev, int32_t* __restrict__ nev, int G, int B,
-    int LrP, int LqP, int KaP, int WinP, int evc, Cfg c) {
+    int LrP, int LqP, int KaP, int WinP, int evc, bool dsz_per_pair,
+    Cfg c) {
     const int pair = blockIdx.x * blockDim.x + threadIdx.x;
     if (pair >= G * B) return;
     const int g = pair / B, b = pair % B;
@@ -118,9 +163,9 @@ __global__ void parse_events_kernel(
     P.ref = refbuf + (size_t)g * LrP;
     P.nr = nrs[g];
     P.q = qbuf + (size_t)b * LqP;
-    P.dsz = dszs[b];
+    P.dsz = dszs[dsz_per_pair ? pair : b];
     const int32_t* pos = poslist + (size_t)g * KaP;
-    const int32_t* cd = cand + (size_t)pair * LqP;
+    const Cand cd(cand, pair, LqP);
     const int32_t* nh = next_hit + (size_t)pair * LqP;
     const uint32_t* wt = win + (size_t)g * WinP;
     int32_t* out = ev + (size_t)pair * evc * 8;
@@ -139,8 +184,8 @@ __global__ void parse_events_kernel(
             i = j;
             if (i >= limit) break;
         }
-        const int cw = cd[i];
-        const int cnt = cw & 127, start = cw >> 7;
+        int start, cnt;
+        cd.get(i, start, cnt);
         int a_len = 0, a_pos = 0;
         for (int k = 0; k < cnt; ++k) {
             const int p = pos[start + k];
@@ -222,24 +267,52 @@ __global__ void parse_events_kernel(
     nev[pair] = i < limit ? -1 : ne;
 }
 
+template <class Cand>
+int launch(const void* refbuf, const void* qbuf, const void* poslist,
+           const void* cand, const void* next_hit, const void* win,
+           const void* dszs, const void* nrs, void* ev, void* nev, int G,
+           int B, int LrP, int LqP, int KaP, int WinP, int evc,
+           bool dsz_per_pair, const Cfg& c, void* stream) {
+    const int n = G * B;
+    const int threads = 32;  // one warp per block: 32 consecutive pairs
+    const int blocks = (n + threads - 1) / threads;
+    if (n > 0)
+        parse_events_kernel<Cand>
+            <<<blocks, threads, 0, (cudaStream_t)stream>>>(
+            (const uint8_t*)refbuf, (const uint8_t*)qbuf,
+            (const int32_t*)poslist, (const int32_t*)cand,
+            (const int32_t*)next_hit, (const uint32_t*)win,
+            (const int32_t*)dszs, (const int32_t*)nrs, (int32_t*)ev,
+            (int32_t*)nev, G, B, LrP, LqP, KaP, WinP, evc, dsz_per_pair, c);
+    return (int)cudaGetLastError();
+}
+
 }  // namespace
 
+// Group path: cand (G, B, LqP) packed, dszs (B,).
 extern "C" int lzt_parse_events(
     const void* refbuf, const void* qbuf, const void* poslist,
     const void* cand, const void* next_hit, const void* win,
     const void* dszs, const void* nrs, void* ev, void* nev, int G, int B,
     int LrP, int LqP, int KaP, int WinP, int evc, int mal, int msl, int mrd,
     int mqd, int reg, int aw, int am, int ar, void* stream) {
-    const Cfg c{mal, msl, mrd, mqd, reg, aw, am, ar};
-    const int n = G * B;
-    const int threads = 32;  // one warp per block: 32 pairs of one reference
-    const int blocks = (n + threads - 1) / threads;
-    if (n > 0)
-        parse_events_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-            (const uint8_t*)refbuf, (const uint8_t*)qbuf,
-            (const int32_t*)poslist, (const int32_t*)cand,
-            (const int32_t*)next_hit, (const uint32_t*)win,
-            (const int32_t*)dszs, (const int32_t*)nrs, (int32_t*)ev,
-            (int32_t*)nev, G, B, LrP, LqP, KaP, WinP, evc, c);
-    return (int)cudaGetLastError();
+    return launch<PackedCand>(refbuf, qbuf, poslist, cand, next_hit, win,
+                              dszs, nrs, ev, nev, G, B, LrP, LqP, KaP, WinP,
+                              evc, false,
+                              Cfg{mal, msl, mrd, mqd, reg, aw, am, ar},
+                              stream);
+}
+
+// Long-genome path: cand (G, B, 2, LqP) two planes, dszs (G, B).
+extern "C" int lzt_parse_events_big(
+    const void* refbuf, const void* qbuf, const void* poslist,
+    const void* cand, const void* next_hit, const void* win,
+    const void* dszs, const void* nrs, void* ev, void* nev, int G, int B,
+    int LrP, int LqP, int KaP, int WinP, int evc, int mal, int msl, int mrd,
+    int mqd, int reg, int aw, int am, int ar, void* stream) {
+    return launch<TwoPlaneCand>(refbuf, qbuf, poslist, cand, next_hit, win,
+                                dszs, nrs, ev, nev, G, B, LrP, LqP, KaP,
+                                WinP, evc, true,
+                                Cfg{mal, msl, mrd, mqd, reg, aw, am, ar},
+                                stream);
 }

@@ -17,17 +17,16 @@ Prints, each line beside the card's name and power limit:
 from __future__ import annotations
 
 import argparse
-import subprocess
 import time
 
 import numpy as np
 import torch
 
-from lzani_tpu.params import Params
-
 from . import synth
 from .ops import cuda_engine as ce
 from .ops.parse_kernel import parse_events
+from .params import Params
+from .utils.runinfo import card_name_and_power
 
 
 def _kernel_ms(eng, gi, qrows, dev, reps=3):
@@ -59,9 +58,7 @@ def main(argv=None) -> int:
         print("dispatch_probe: no CUDA device")
         return 1
     dev = torch.device("cuda", 0)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60).stdout.strip()
+    smi = card_name_and_power()
     _, codes = synth.viral_set(seed=a.seed, n=a.n)
     params = Params()
     eng = ce.CudaAll2All(codes, params, devices=[dev])

@@ -1,21 +1,33 @@
 """All-vs-all device engine of the port: resident state, plain-torch prep
-and the group dispatch around the CUDA event-log parse kernel.
+and the group and long-genome dispatches around the CUDA event-log parse
+kernels.
 
-Counterpart of the group path of ``lzani_tpu/ops/pallas_engine.py``
-(``PallasAll2All``, ``PallasGroupIndex``, ``_get_group_step``,
-``all2all_pallas``). Per run, the query matrix is packed 3 symbols per
-byte and kept resident on the device with a length table. Per group of
-G = 4 references, the packed composite buffers, WIN bit tables and
-lengths are uploaded once, and the 11-mer join (a stable sort plus
-counts, giving ``ptab = start << 7 | min(count, 127)`` and ``poslist``)
-is built once on the device. Each dispatch covers G references x B
-queries: it unpacks the queries, gathers their anchor candidates, flags
-rows whose candidate count exceeds CNT_CAP, computes ``next_hit`` by a
-reverse cummin, and launches the parse kernel. The event logs come back
+Counterpart of the group and long-genome paths of
+``lzani_tpu/ops/pallas_engine.py`` (``PallasAll2All``,
+``PallasGroupIndex``, ``_get_group_step``, ``build_big_index``,
+``dispatch_big``, ``collect_big``, ``all2all_pallas``). Per run, the
+query matrix is packed 3 symbols per byte and kept resident on the
+device with a length table. Per group of G = 4 references, the packed
+composite buffers, WIN bit tables and lengths are uploaded once, and the
+11-mer join (a stable sort plus counts, giving ``ptab = start << 7 |
+min(count, 127)`` and ``poslist``) is built once on the device. Each
+dispatch covers G references x B queries: it unpacks the queries,
+gathers their anchor candidates, flags rows whose candidate count
+exceeds CNT_CAP, computes ``next_hit`` by a reverse cummin, and launches
+the parse kernel. The event logs come back
 to the host and are replayed by the native engine (``finalize.py``).
 
+Rows whose composite reference exceeds MAX_REF_SYMS, and every row when
+the query bucket exceeds MAX_Q or mal > 13 (no dense 4^mal table), take
+the long-genome path instead: per group of G_big references a
+``BigIndex`` holds the sorted two-word-key join (``big.py``), and each
+dispatch of G_big references x B_big queries builds a two-plane
+candidate table with unbounded counts and launches the big kernel. Only
+rows above MAX_BIG_SYMS run on the native engine.
+
 Everything here is plain PyTorch on an explicit ``torch.device``; the
-only kernel written by hand is ``parse_kernel.parse_events``.
+only kernels written by hand are ``parse_kernel.parse_events`` and
+``parse_kernel.parse_events_big``.
 """
 
 from __future__ import annotations
@@ -27,10 +39,12 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from ..core import native_engine
 from .anchor_tables import SAT, build_win_table
+from .big import big_query_prep, big_ref_join
 from .finalize import Finalizer
 from .parse import ParseCfg
-from .parse_kernel import parse_events
+from .parse_kernel import parse_events, parse_events_big
 from .prep import SYM_N_REF, SYM_N_SEQ, query_buffer_np, ref_buffer_np
 
 
@@ -188,19 +202,6 @@ def query_shape(codes, mrd: int):
     return dszs, _bucket(int(dszs.max(initial=0)) + 1024)
 
 
-def long_genome_reason(LqP: int, mal: int) -> str | None:
-    """Why a whole run goes to the native engine in this port (the JAX
-    package sends every row to its long-genome kernel when the join is
-    not dense or the query bucket exceeds the group path's,
-    pallas_engine.py:1490-1522), or None. Single rows whose composite
-    exceeds MAX_REF_SYMS are routed in ``all2all_cuda``."""
-    if mal > 13:
-        return f"min anchor length {mal} > 13 (no dense 4^mal join table)"
-    if LqP > CudaAll2All.MAX_Q:
-        return f"query bucket {LqP} exceeds {CudaAll2All.MAX_Q}"
-    return None
-
-
 # ---------------------------------------------------------------------------
 # resident state
 # ---------------------------------------------------------------------------
@@ -238,23 +239,61 @@ class GroupIndex:
         self.nrs = torch.from_numpy(nrs).to(dev)
         refbuf = dev_unpack3(self.refbuf_p, self.LrP)
         self.refbuf = refbuf.to(torch.uint8).contiguous()
+        self._join(refbuf, cfg)
+
+    def _join(self, refbuf, cfg):
         self.ptab, self.poslist = group_join(refbuf, cfg.mal, self.KaP)
 
 
-def state_from_jax(q_packed, dsz, refbuf_p, win, nrs, device):
+class BigIndex(GroupIndex):
+    """Device state of G long-genome references at the run's big buckets
+    (counterpart of ``build_big_index``): the buffers, WIN tables and
+    lengths of ``GroupIndex``, with the sorted join in place of the dense
+    table: ``keys`` (G, LrP) int64 sorted k-mer keys and ``poslist``
+    (G, KaP) int32 positions in the same order."""
+
+    def _join(self, refbuf, cfg):
+        self.keys, self.poslist = big_ref_join(refbuf, cfg.mal, self.KaP)
+
+
+def state_from_jax(q_packed, dsz, refbuf_p, win, nrs, device, big=None):
     """Carry the JAX engine's resident state over: numpy copies of
     ``PallasAll2All.Q`` / ``.DSZ`` (one device's entries) and
     ``PallasGroupIndex.refbuf_p`` / ``.win`` / ``.nrs`` become the port's
     ``CudaAll2All.Q`` / ``.DSZ`` and ``GroupIndex`` tensors on `device`
-    (same layouts, byte for byte)."""
+    (same layouts, byte for byte).
+
+    `big`, when given, is a list of ``PallasAll2All.build_big_index``
+    results as numpy arrays, one per reference: dicts with ``refbuf``
+    (1, LrP) int32, ``khi`` / ``klo`` (LrP,) int32 sorted key words,
+    ``pos`` (1, KaP) int32, ``win`` (1, WinP) int32 (its
+    ``gidx.win``) and ``nr``. They become one ``BigIndex`` under
+    ``"big"``: the key ``khi << 30 | klo`` (the JAX join's invalid
+    entry, khi = 2^30 and klo = 0, is the port's KEY_INVALID)."""
     dev = torch.device(device)
 
     def put(a, dtype):
         return torch.from_numpy(np.array(a, dtype=dtype)).to(dev)
 
-    return {"Q": put(q_packed, np.uint8), "DSZ": put(dsz, np.int32),
-            "refbuf_p": put(refbuf_p, np.uint8), "win": put(win, np.int32),
-            "nrs": put(nrs, np.int32)}
+    state = {"Q": put(q_packed, np.uint8), "DSZ": put(dsz, np.int32),
+             "refbuf_p": put(refbuf_p, np.uint8), "win": put(win, np.int32),
+             "nrs": put(nrs, np.int32)}
+    if big:
+        bidx = BigIndex.__new__(BigIndex)
+        bidx.G = len(big)
+        bidx.refbuf = put(np.concatenate([d["refbuf"] for d in big]),
+                          np.uint8)
+        bidx.LrP = bidx.refbuf.shape[1]
+        keys = np.stack([(np.asarray(d["khi"], np.int64) << 30)
+                         | np.asarray(d["klo"], np.int64) for d in big])
+        bidx.keys = put(keys, np.int64)
+        bidx.poslist = put(np.concatenate([d["pos"] for d in big]), np.int32)
+        bidx.KaP = bidx.poslist.shape[1]
+        bidx.win = put(np.concatenate([d["win"] for d in big]), np.int32)
+        bidx.WinP = bidx.win.shape[1]
+        bidx.nrs = put([d["nr"] for d in big], np.int32)
+        state["big"] = bidx
+    return state
 
 
 class CudaAll2All:
@@ -266,10 +305,20 @@ class CudaAll2All:
     CNT_CAP = 112        # anchor-bucket count above which a row falls back
     EV_CAP = 2048        # events per pair; beyond -> native fallback
     GROUP = 4            # references per dispatch
-    # rows beyond these go to the JAX package's long-genome kernel there,
-    # and to the native engine here until that kernel is ported
     MAX_REF_SYMS = 700_000   # composite symbols of a group-path reference
     MAX_Q = 1 << 19          # query bucket of the group path
+    MAX_BIG_SYMS = 1 << 25   # composite symbols of a long-genome reference
+    #: memory a long-genome launch may take on the CPU (tests); on a card
+    #: it is a quarter of the free memory
+    CPU_BIG_BUDGET = 1 << 30
+
+    @classmethod
+    def row_path(cls, nr: int, all_big: bool) -> str:
+        """'group', 'big' or 'native' for a reference row whose composite
+        has `nr` symbols (the JAX rule, pallas_engine.py:1494-1522)."""
+        if nr <= cls.MAX_REF_SYMS and not all_big:
+            return "group"
+        return "big" if nr <= cls.MAX_BIG_SYMS else "native"
 
     def __init__(self, codes, params, devices=None, shape=None):
         """`shape`, when given, is ``query_shape(codes, mrd)`` already
@@ -282,11 +331,21 @@ class CudaAll2All:
             [torch.device("cuda", torch.cuda.current_device())]
         self.dszs, self.LqP = (shape if shape is not None
                                else query_shape(codes, cfg.mrd))
-        nrs = 2 * self.dszs.astype(np.int64) + cfg.mrd   # 2L + 3 mrd
-        nrs = nrs[nrs <= self.MAX_REF_SYMS]
+        nr_all = 2 * self.dszs.astype(np.int64) + cfg.mrd   # 2L + 3 mrd
+        #: every row takes the long-genome path (the query bucket exceeds
+        #: the group path's, or no dense 4^mal join table)
+        self.all_big = self.LqP > self.MAX_Q or cfg.mal > 13
+        self.paths = [self.row_path(int(v), self.all_big) for v in nr_all]
+        nrs = nr_all[[p == "group" for p in self.paths]]
         nr_ok = int(nrs.max()) if len(nrs) else 4096
         self.LrP_ref = _bucket(nr_ok + 1024)
         self.KaP_ref = _bucket(nr_ok + 256, lo=1024)
+        nrs = nr_all[[p == "big" for p in self.paths]]
+        self.LrP_big = _bucket(int(nrs.max()) + 1024) if len(nrs) else 0
+        self.KaP_big = _bucket(self.LrP_big + 256, lo=1024) if len(nrs) else 0
+        #: events per long-genome pair (pallas_engine.py:2511)
+        self.EV_CAP_BIG = max(self.EV_CAP, self.LqP // 32)
+        self.G_big = self.B_big = 0         # set by big_launch_shape
         # queries per dispatch. A dispatch lasts as long as its slowest
         # warp (one thread per pair), so 256 queries (1024 pairs) cost no
         # more per launch than the JAX engine's 64: 651.3 vs 649.3 ms at
@@ -349,14 +408,81 @@ class CudaAll2All:
         None where the pair must be parsed natively (nev < 0, nev >
         EV_CAP, or an anchor bucket over CNT_CAP in the query row)."""
         ev, nev, overflow = handles
-        nev_h = nev.cpu().numpy()
-        ovf = overflow.cpu().numpy()
-        mx = max(min(int(nev_h.max(initial=0)), self.EV_CAP), 1)
-        ev_h = ev[:, :, :mx].cpu().numpy()
-        G, B = nev_h.shape
-        return [[None if (ovf[g, b] or not 0 <= nev_h[g, b] <= self.EV_CAP)
-                 else ev_h[g, b, :nev_h[g, b]]
-                 for b in range(B)] for g in range(G)]
+        return _download_logs(ev, nev, self.EV_CAP, overflow.cpu().numpy())
+
+    # ---- long-genome path ----------------------------------------------
+
+    def big_launch_shape(self, n_big: int, device=None):
+        """Set and return (G_big, B_big): references and queries per
+        long-genome launch. The JAX package caps B_big at 4 to guard a TPU
+        watchdog; here both come from memory: the most pairs whose buffers
+        fit a quarter of the card's free memory (two launches are in
+        flight), B_big a power of two <= B."""
+        dev = torch.device(device or self.devices[0])
+        budget = (torch.cuda.mem_get_info(dev)[0] // 4 if dev.type == "cuda"
+                  else self.CPU_BIG_BUDGET)
+        LqP = self.LqP
+        # candidate planes + next_hit, and the event buffer
+        per_pair = 12 * LqP + 32 * (self.EV_CAP_BIG + 1)
+        # codes, keys, search bounds and cummin transients of one query
+        per_query = 48 * LqP
+        # packed, uint8 and int32 buffers, sorted keys, position list
+        per_ref = 13 * self.LrP_big + 4 * self.KaP_big
+        B = self.B
+        while B > 1 and B * (per_query + per_pair) + per_ref > budget:
+            B //= 2
+        G = (budget - B * per_query) // (per_ref + B * per_pair)
+        self.G_big, self.B_big = max(1, min(n_big, G)), B
+        return self.G_big, self.B_big
+
+    def build_big_index(self, r_list, device=None) -> BigIndex:
+        """Device index of a group of long-genome references (any G)."""
+        return BigIndex([self.codes[r] for r in r_list], self.params,
+                        device or self.devices[0], LrP=self.LrP_big,
+                        KaP=self.KaP_big)
+
+    def big_args(self, bidx: BigIndex, r_list, lo, device=None):
+        """Prep of a long-genome dispatch: the arguments of
+        ``parse_events_big`` for the references `r_list` of `bidx` x the
+        B_big queries [lo, lo + B_big). The self pair gets dsz = msl, so a
+        megabase self-parse never runs (pallas_engine.py:1888-1891), as do
+        padding rows."""
+        dev = device or self.devices[0]
+        cfg, B = self.cfg, self.B_big
+        q = dev_unpack3(self.Q[dev][lo:lo + B], self.LqP)
+        rows = torch.arange(lo, lo + B, device=dev)
+        refs = torch.as_tensor(list(r_list), device=dev)
+        dsz = torch.where(rows[None] == refs[:, None], cfg.msl,
+                          self.DSZ[dev][lo:lo + B][None]).to(torch.int32)
+        cand, next_hit = big_query_prep(q, dsz, bidx.keys, cfg.mal, cfg.msl)
+        return (bidx.refbuf, q.to(torch.uint8).contiguous(), bidx.poslist,
+                cand, next_hit, bidx.win, dsz.contiguous(), bidx.nrs, cfg,
+                self.EV_CAP_BIG)
+
+    def dispatch_big(self, bidx: BigIndex, r_list, lo, device=None):
+        """Prep + big kernel (``big_args``). Returns device tensors (ev,
+        nev); nothing is synchronised."""
+        return parse_events_big(*self.big_args(bidx, r_list, lo, device))
+
+    def collect_big(self, handles):
+        """Download a long-genome dispatch -> out[g][b]: an event log, or
+        None where the pair must be parsed natively (nev < 0 or nev >
+        EV_CAP_BIG: a capacity fallback)."""
+        ev, nev = handles
+        return _download_logs(ev, nev, self.EV_CAP_BIG)
+
+
+def _download_logs(ev, nev, cap, overflow=None):
+    """out[g][b] from a dispatch's (ev, nev): the first nev records, or
+    None where nev < 0, nev > cap or `overflow[g, b]` is set."""
+    nev_h = nev.cpu().numpy()
+    mx = max(min(int(nev_h.max(initial=0)), cap), 1)
+    ev_h = ev[:, :, :mx].cpu().numpy()
+    G, B = nev_h.shape
+    return [[None if ((overflow is not None and overflow[g, b])
+                      or not 0 <= nev_h[g, b] <= cap)
+             else ev_h[g, b, :nev_h[g, b]]
+             for b in range(B)] for g in range(G)]
 
 
 # ---------------------------------------------------------------------------
@@ -375,46 +501,50 @@ def all2all_cuda(codes, params, filter_csr=None, progress=None,
     """All-vs-all triples through the CUDA engine; layout matches
     ``native_engine.all2all`` (dense (n, n-1, 3), or (nnz, 3) aligned to
     the filter CSR). `device` defaults to the current CUDA device; a CPU
-    device runs the kernel's plain version (tests).
+    device runs the kernels' plain versions (tests).
 
-    `stats`, when given, receives: kernel_pairs (pairs replayed from a
-    kernel log), cap_fallbacks (pairs whose log exceeded EV_CAP or whose
-    row had an anchor bucket over CNT_CAP), native_rows and
-    native_row_pairs (rows routed to the native engine), replay_mismatches
-    (logs the replay rejected), dispatches and launches.
+    Rows are routed as the JAX package routes them (``row_path``): the
+    group path, the long-genome path, or (composites above MAX_BIG_SYMS)
+    the native engine, logged.
+
+    `stats`, when given, receives: kernel_pairs / big_pairs (pairs
+    replayed from a group / long-genome kernel log), cap_fallbacks (group
+    pairs whose log exceeded EV_CAP or whose row had an anchor bucket over
+    CNT_CAP), big_cap_fallbacks and big_fallback_pairs (long-genome pairs
+    whose log exceeded EV_CAP_BIG, and their (r, q)), native_rows and
+    native_row_pairs (rows routed to the native engine), big_rows,
+    G_big and B_big (references and queries per long-genome launch),
+    replay_mismatches (logs the replay rejected), dispatches, and
+    launches / big_launches (kernel launches of each path).
 
     Raises RuntimeError after the run when any kernel log failed the
     replay's cross-check: the kernel computed a wrong stream, and those
     pairs' outputs are not written.
     """
-    from lzani_tpu.core import native_engine
-
     from . import parse_kernel
 
     verbosity = getattr(params, "verbosity_level", 1)
 
-    def _warn(msg):
-        if verbosity >= 1:
+    def _warn(msg, level=1):
+        if verbosity >= level:
             print(msg, file=sys.stderr)
 
     n = len(codes)
     cfg = ParseCfg.from_params(params)
     launches0 = parse_kernel.parse_events.launches
-    st = dict(kernel_pairs=0, cap_fallbacks=0, native_rows=0,
-              native_row_pairs=0, replay_mismatches=0, dispatches=0,
-              launches=0)
+    big_launches0 = parse_kernel.parse_events_big.launches
+    st = dict(kernel_pairs=0, cap_fallbacks=0, big_pairs=0,
+              big_cap_fallbacks=0, big_fallback_pairs=[], native_rows=0,
+              native_row_pairs=0, big_rows=0, G_big=0, B_big=0,
+              replay_mismatches=0, dispatches=0, launches=0, big_launches=0)
     if stats is not None:
         stats.update(st)
 
-    shape = dszs, LqP = query_shape(codes, cfg.mrd)
     reason = device_envelope_reason(params)
     if reason is not None:
-        reason = f"parameters outside the CUDA kernel envelope ({reason})"
-    else:
-        reason = long_genome_reason(LqP, cfg.mal)
-    if reason is not None:
-        _warn(f"lz-ani-torch: {reason}; this run uses the native engine "
-              f"(byte-identical output)")
+        _warn(f"lz-ani-torch: parameters outside the CUDA kernel envelope "
+              f"({reason}); this run uses the native engine (byte-identical "
+              f"output)")
         out = native_engine.all2all(codes, params, filter_csr=filter_csr,
                                     region_path=region_path)
         if stats is not None:
@@ -434,7 +564,15 @@ def all2all_cuda(codes, params, filter_csr=None, progress=None,
         indptr, ids = filter_csr
         out = np.zeros((len(ids), 3), dtype=np.int32)
 
-    rows_ok, native_rows = [], []
+    eng = (CudaAll2All(codes, params, devices=[device],
+                       shape=query_shape(codes, cfg.mrd)) if n else None)
+    if n and eng.all_big:
+        why = (f"min anchor length {cfg.mal} > 13 (no dense 4^mal join "
+               f"table)" if cfg.mal > 13 else
+               f"query bucket {eng.LqP} exceeds {CudaAll2All.MAX_Q}")
+        _warn(f"lz-ani-torch: {why}; every row takes the long-genome "
+              f"kernel")
+    rows = {"group": [], "big": [], "native": []}
     for r in range(n):
         if filter_csr is None:
             wanted = {q: (r, q - 1 if q > r else q)
@@ -442,31 +580,41 @@ def all2all_cuda(codes, params, filter_csr=None, progress=None,
         else:
             wanted = {int(q): int(indptr[r]) + k
                       for k, q in enumerate(ids[indptr[r]:indptr[r + 1]])}
-        nr = 2 * int(dszs[r]) + cfg.mrd                   # 2L + 3 mrd
-        if nr > CudaAll2All.MAX_REF_SYMS:
-            _warn(f"lz-ani-torch: reference {r} "
-                  f"({int(dszs[r]) - cfg.mrd} bp): composite of {nr} "
-                  f"symbols exceeds {CudaAll2All.MAX_REF_SYMS}; row runs "
-                  f"on the native engine")
-            native_rows.append((r, wanted))
-        else:
-            rows_ok.append((r, wanted))
+        if eng.paths[r] == "native":
+            _warn(f"lz-ani-torch: reference {r} ({int(eng.dszs[r]) - cfg.mrd}"
+                  f" bp): composite of {2 * int(eng.dszs[r]) + cfg.mrd} "
+                  f"symbols exceeds {CudaAll2All.MAX_BIG_SYMS}; row runs on "
+                  f"the native engine")
+        rows[eng.paths[r]].append((r, wanted))
 
-    G = CudaAll2All.GROUP
+    # groups: (kind, r_list, wanteds). Group-path groups are padded to G
+    # with dummy references (r = -1); long-genome groups are not
     groups = []
-    for i0 in range(0, len(rows_ok), G):
-        chunk = rows_ok[i0:i0 + G]
-        r_list = [r for r, _ in chunk] + [-1] * (G - len(chunk))
-        wanteds = [w for _, w in chunk] + [{}] * (G - len(chunk))
-        groups.append((r_list, wanteds))
+    G = CudaAll2All.GROUP
+    for i0 in range(0, len(rows["group"]), G):
+        chunk = rows["group"][i0:i0 + G]
+        pad = G - len(chunk)
+        groups.append(("group", [r for r, _ in chunk] + [-1] * pad,
+                       [w for _, w in chunk] + [{}] * pad))
+    if rows["big"]:
+        G_big, B_big = eng.big_launch_shape(len(rows["big"]), device)
+        st.update(G_big=G_big, B_big=B_big)
+        _warn(f"lz-ani-torch: long-genome path: {len(rows['big'])} rows, "
+              f"{G_big} references x {B_big} queries per launch, event cap "
+              f"{eng.EV_CAP_BIG}", level=2)
+        for i0 in range(0, len(rows["big"]), G_big):
+            chunk = rows["big"][i0:i0 + G_big]
+            groups.append(("big", [r for r, _ in chunk],
+                           [w for _, w in chunk]))
 
-    eng = (CudaAll2All(codes, params, devices=[device], shape=shape)
-           if rows_ok else None)
     units = []  # (gi, lo or (idx, posof), subs[g] = {q: slot})
-    for gi, (r_list, wanteds) in enumerate(groups):
-        if filter_csr is None:
-            for lo in range(0, eng.n_pad, eng.B):
-                subs = [{q: s for q, s in w.items() if lo <= q < lo + eng.B}
+    for gi, (kind, r_list, wanteds) in enumerate(groups):
+        if kind == "big" or filter_csr is None:
+            # contiguous query windows (the long-genome path uses them
+            # under a filter too, as the JAX engine does)
+            width = eng.B_big if kind == "big" else eng.B
+            for lo in range(0, eng.n_pad, width):
+                subs = [{q: s for q, s in w.items() if lo <= q < lo + width}
                         for w in wanteds]
                 if any(subs):
                     units.append((gi, lo, subs))
@@ -483,12 +631,14 @@ def all2all_cuda(codes, params, filter_csr=None, progress=None,
                         for w in wanteds]
                 units.append((gi, (idx, posof), subs))
 
+    # the Sequences% counter: a reference row counts when its last unit
+    # drains (pallas_engine.py:1575-1580); rows without units count now
     group_rem = [0] * len(groups)
     for gi, _, _ in units:
         group_rem[gi] += 1
-    group_nreal = [sum(r >= 0 for r in rl) for rl, _ in groups]
+    group_nreal = [sum(r >= 0 for r in rl) for _, rl, _ in groups]
     total_pairs = (sum(len(s) for u in units for s in u[2])
-                   + sum(len(w) for _, w in native_rows))
+                   + sum(len(w) for _, w in rows["native"]))
     seqs_done = sum(group_nreal[gi] for gi in range(len(groups))
                     if group_rem[gi] == 0)
 
@@ -500,33 +650,39 @@ def all2all_cuda(codes, params, filter_csr=None, progress=None,
         with ThreadPoolExecutor(max_workers=nthreads) as pool:
             futs = []
             # native rows first: the pool works on them while the device
-            # runs the group units
-            for r, wanted in native_rows:
+            # runs the kernel units
+            for r, wanted in rows["native"]:
                 futs.append(pool.submit(
                     _finalize_many, fin, r,
                     [(q, None, s) for q, s in wanted.items()]))
                 st["native_row_pairs"] += len(wanted)
-            st["native_rows"] = len(native_rows)
+            st["native_rows"] = len(rows["native"])
+            st["big_rows"] = len(rows["big"])
 
             def drain(unit, handles):
                 nonlocal done_pairs, seqs_done
                 gi, lo, subs = unit
+                kind, r_list, _ = groups[gi]
+                big = kind == "big"
                 posof = lo[1] if isinstance(lo, tuple) else None
-                evs = eng.collect_group(handles)
-                for g, r in enumerate(groups[gi][0]):
+                evs = (eng.collect_big(handles) if big
+                       else eng.collect_group(handles))
+                for g, r in enumerate(r_list):
                     items = []
                     for q, s in subs[g].items():
                         b = posof[q] if posof is not None else q - lo
                         ev = evs[g][b]
                         if ev is None:
-                            st["cap_fallbacks"] += 1
-                            if verbosity >= 2:
-                                print(f"lz-ani-torch: pair ({r},{q}) fell "
-                                      f"back to the native engine "
-                                      f"(event/anchor capacity)",
-                                      file=sys.stderr)
+                            if big:
+                                st["big_cap_fallbacks"] += 1
+                                st["big_fallback_pairs"].append([r, q])
+                            else:
+                                st["cap_fallbacks"] += 1
+                            _warn(f"lz-ani-torch: pair ({r},{q}) fell back "
+                                  f"to the native engine (event/anchor "
+                                  f"capacity)", level=2)
                         else:
-                            st["kernel_pairs"] += 1
+                            st["big_pairs" if big else "kernel_pairs"] += 1
                         items.append((q, ev, s))
                     if items:
                         futs.append(pool.submit(_finalize_many, fin, r,
@@ -545,10 +701,15 @@ def all2all_cuda(codes, params, filter_csr=None, progress=None,
             cur_gi, cur_idx = None, None
             for unit in units:
                 gi, lo, _ = unit
+                kind, r_list, _ = groups[gi]
                 if gi != cur_gi:
-                    cur_gi = gi
-                    cur_idx = eng.build_group_index(groups[gi][0], device)
-                if isinstance(lo, tuple):
+                    cur_gi, cur_idx = gi, None   # free the previous index
+                    cur_idx = (eng.build_big_index(r_list, device)
+                               if kind == "big"
+                               else eng.build_group_index(r_list, device))
+                if kind == "big":
+                    handles = eng.dispatch_big(cur_idx, r_list, lo, device)
+                elif isinstance(lo, tuple):
                     handles = eng.dispatch_group(
                         cur_idx, None, device,
                         qrows=eng.gather_qrows(lo[0], device))
@@ -570,10 +731,11 @@ def all2all_cuda(codes, params, filter_csr=None, progress=None,
 
     st["replay_mismatches"] = fin.replay_mismatches
     st["launches"] = parse_kernel.parse_events.launches - launches0
-    if st["cap_fallbacks"]:
-        _warn(f"lz-ani-torch: {st['cap_fallbacks']}/{total_pairs} pairs fell "
-              f"back to the native engine (event-buffer or anchor-bucket "
-              f"capacity)")
+    st["big_launches"] = parse_kernel.parse_events_big.launches - big_launches0
+    fallbacks = st["cap_fallbacks"] + st["big_cap_fallbacks"]
+    if fallbacks:
+        _warn(f"lz-ani-torch: {fallbacks}/{total_pairs} pairs fell back to "
+              f"the native engine (event-buffer or anchor-bucket capacity)")
     if stats is not None:
         stats.update(st)
     if st["replay_mismatches"]:

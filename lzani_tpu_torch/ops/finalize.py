@@ -16,7 +16,7 @@ import threading
 
 import numpy as np
 
-from lzani_tpu.core import native_engine
+from ..core import native_engine
 
 
 class Finalizer:

@@ -1,27 +1,34 @@
-"""Event-log parse of a group dispatch: the CUDA kernel's wrapper and its
-plain PyTorch version.
+"""Event-log parse of a dispatch: the CUDA kernels' wrappers and their
+plain PyTorch versions.
 
-Both compute, for every (reference g, query b) pair, the greedy LZ-parse
-decision stream of the reference parser — the function of the TPU kernel
-``make_parse_kernel_sim`` (``lzani_tpu/ops/pallas_v7.py``) and of the C++
-oracle ``Parser::parse`` (``lzani_core.cpp``). Inputs (one group):
+Both kernels compute, for every (reference g, query b) pair, the greedy
+LZ-parse decision stream of the reference parser — the function of the
+TPU kernels ``make_parse_kernel_sim`` (``lzani_tpu/ops/pallas_v7.py``)
+and ``make_parse_kernel(big=True)`` (``lzani_tpu/ops/pallas_engine.py``),
+and of the C++ oracle ``Parser::parse`` (``csrc/lzani_core.cpp``). They
+differ only in the candidate table and the query lengths. Inputs:
 
   refbuf   (G, LrP)     uint8   composite reference buffers
   qbuf     (B, LqP)     uint8   query buffers
-  poslist  (G, KaP)     int32   anchor positions sorted by (11-mer, pos)
-  cand     (G, B, LqP)  int32   start << 7 | min(count, 127) per query pos
-  next_hit (G, B, LqP)  int32   next query position with candidates
+  poslist  (G, KaP)     int32   anchor positions sorted by (k-mer, pos)
   win      (G, WinP)    int32   WIN arbitration bit table
-  dsz      (B,)         int32   query length + mrd
   nrs      (G,)         int32   composite reference length
+group path (``parse_events``):
+  cand     (G, B, LqP)  int32   start << 7 | min(count, 127) per query pos
+  dsz      (B,)         int32   query length + mrd
+long-genome path (``parse_events_big``):
+  cand     (G, B, 2, LqP) int32 start plane, unbounded count plane
+  dsz      (G, B)       int32   query length + mrd per pair (msl: no-op)
+both:
+  next_hit (G, B, LqP)  int32   next query position with candidates
 
 Outputs: ``ev`` (G, B, ev_cap + 1, 8) int32 records {i, pos, len, bwd,
 ext, 0, 0, 0} and ``nev`` (G, B) int32, -1 when the parse did not reach
 ``i + msl >= dsz`` within ev_cap + 1 records. Only the first ``nev``
 records of a pair are defined.
 
-``parse_events`` launches the kernel for CUDA tensors (or raises) and
-takes the plain version only for CPU tensors.
+A wrapper launches its kernel for CUDA tensors (or raises) and takes the
+plain version only for CPU tensors. Each wrapper counts its launches.
 """
 
 from __future__ import annotations
@@ -39,85 +46,108 @@ from .prep import SYM_N_REF, SYM_N_SEQ
 SOURCE = os.path.join(build.CSRC, "parse_events.cu")
 
 
-def _check(refbuf, qbuf, poslist, cand, next_hit, win, dsz, nrs,
-           cfg: ParseCfg, ev_cap: int):
+def _check(name, refbuf, qbuf, poslist, cand, next_hit, win, dsz, nrs,
+           cfg: ParseCfg, ev_cap: int, big: bool):
     G, _ = refbuf.shape
     B, LqP = qbuf.shape
     want = {
         "refbuf": (refbuf, torch.uint8, (G, refbuf.shape[1])),
         "qbuf": (qbuf, torch.uint8, (B, LqP)),
         "poslist": (poslist, torch.int32, (G, poslist.shape[1])),
-        "cand": (cand, torch.int32, (G, B, LqP)),
+        "cand": (cand, torch.int32, (G, B, 2, LqP) if big else (G, B, LqP)),
         "next_hit": (next_hit, torch.int32, (G, B, LqP)),
         "win": (win, torch.int32, (G, win.shape[1])),
-        "dsz": (dsz, torch.int32, (B,)),
+        "dsz": (dsz, torch.int32, (G, B) if big else (B,)),
         "nrs": (nrs, torch.int32, (G,)),
     }
-    for name, (t, dtype, shape) in want.items():
+    for arg, (t, dtype, shape) in want.items():
         if t.dtype != dtype or tuple(t.shape) != shape:
-            raise ValueError(f"parse_events: {name} must be {dtype} of "
-                             f"shape {shape}, got {t.dtype} "
-                             f"{tuple(t.shape)}")
+            raise ValueError(f"{name}: {arg} must be {dtype} of shape "
+                             f"{shape}, got {t.dtype} {tuple(t.shape)}")
         if t.device != refbuf.device:
-            raise ValueError(f"parse_events: {name} is on {t.device}, "
-                             f"refbuf on {refbuf.device}")
+            raise ValueError(f"{name}: {arg} is on {t.device}, refbuf on "
+                             f"{refbuf.device}")
         if not t.is_contiguous():
-            raise ValueError(f"parse_events: {name} is not contiguous")
+            raise ValueError(f"{name}: {arg} is not contiguous")
     need_bits = ((SAT - cfg.mal + 1) * (SAT - cfg.msl + 1)
                  * (cfg.mqd + 1))
     if not (1 <= cfg.mal <= SAT and 1 <= cfg.msl <= SAT and cfg.aw >= 1
             and win.shape[1] * 32 >= need_bits and ev_cap >= 0):
-        raise ValueError(f"parse_events: parameters outside the kernel's "
+        raise ValueError(f"{name}: parameters outside the kernel's "
                          f"envelope ({cfg}, WinP={win.shape[1]}, "
                          f"ev_cap={ev_cap})")
+    if max(refbuf.shape[1], LqP, poslist.shape[1]) >= 1 << 31:
+        raise ValueError(f"{name}: a buffer of 2^31 or more positions")
 
 
 def _lib() -> ctypes.CDLL:
     lib = build.load_library("parse_events", [SOURCE])
-    fn = lib.lzt_parse_events
-    if fn.argtypes is None:  # pointers and the stream must not be cut to int
-        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 15
-                       + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
+    for fn in (lib.lzt_parse_events, lib.lzt_parse_events_big):
+        if fn.argtypes is None:  # pointers and the stream must not be cut
+            fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 15
+                           + [ctypes.c_void_p])
+            fn.restype = ctypes.c_int
     return lib
+
+
+def _launch(name, entry, refbuf, qbuf, poslist, cand, next_hit, win, dsz,
+            nrs, cfg: ParseCfg, ev_cap: int):
+    """Allocate the outputs and launch the C entry `entry` on the current
+    stream of refbuf's device; raises when the launch is refused."""
+    dev = refbuf.device
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {dev}")
+    G, LrP = refbuf.shape
+    B, LqP = qbuf.shape
+    evc = ev_cap + 1
+    ev = torch.empty((G, B, evc, 8), dtype=torch.int32, device=dev)
+    nev = torch.empty((G, B), dtype=torch.int32, device=dev)
+    fn = getattr(_lib(), entry)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(refbuf.data_ptr(), qbuf.data_ptr(), poslist.data_ptr(),
+                cand.data_ptr(), next_hit.data_ptr(), win.data_ptr(),
+                dsz.data_ptr(), nrs.data_ptr(), ev.data_ptr(),
+                nev.data_ptr(), G, B, LrP, LqP, poslist.shape[1],
+                win.shape[1], evc, cfg.mal, cfg.msl, cfg.mrd, cfg.mqd,
+                cfg.reg, cfg.aw, cfg.am, cfg.ar, stream)
+    if rc != 0:
+        raise RuntimeError(f"{name}: kernel launch failed (cudaError {rc})")
+    return ev, nev
 
 
 def parse_events(refbuf, qbuf, poslist, cand, next_hit, win, dsz, nrs,
                  cfg: ParseCfg, ev_cap: int):
     """Event logs of every pair of a group dispatch (see module doc).
     CUDA tensors launch the kernel; CPU tensors take the plain version."""
-    _check(refbuf, qbuf, poslist, cand, next_hit, win, dsz, nrs, cfg,
-           ev_cap)
-    dev = refbuf.device
-    if dev.type == "cpu":
-        return parse_events_plain(refbuf, qbuf, poslist, cand, next_hit,
-                                  win, dsz, nrs, cfg, ev_cap)
-    if dev.type != "cuda":
-        raise ValueError(f"parse_events: unsupported device {dev}")
-    G, LrP = refbuf.shape
-    B, LqP = qbuf.shape
-    evc = ev_cap + 1
-    ev = torch.empty((G, B, evc, 8), dtype=torch.int32, device=dev)
-    nev = torch.empty((G, B), dtype=torch.int32, device=dev)
-    lib = _lib()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.lzt_parse_events(
-            refbuf.data_ptr(), qbuf.data_ptr(), poslist.data_ptr(),
-            cand.data_ptr(), next_hit.data_ptr(), win.data_ptr(),
-            dsz.data_ptr(), nrs.data_ptr(), ev.data_ptr(), nev.data_ptr(),
-            G, B, LrP, LqP, poslist.shape[1], win.shape[1], evc,
-            cfg.mal, cfg.msl, cfg.mrd, cfg.mqd, cfg.reg, cfg.aw, cfg.am,
-            cfg.ar, stream)
-    if rc != 0:
-        raise RuntimeError(f"parse_events: kernel launch failed "
-                           f"(cudaError {rc})")
+    args = (refbuf, qbuf, poslist, cand, next_hit, win, dsz, nrs, cfg,
+            ev_cap)
+    _check("parse_events", *args, big=False)
+    if refbuf.device.type == "cpu":
+        return parse_events_plain(*args)
+    out = _launch("parse_events", "lzt_parse_events", *args)
     parse_events.launches += 1
-    return ev, nev
+    return out
+
+
+def parse_events_big(refbuf, qbuf, poslist, cand, next_hit, win, dsz, nrs,
+                     cfg: ParseCfg, ev_cap: int):
+    """Event logs of every pair of a long-genome dispatch: two-plane
+    candidate table, per-pair query lengths (see module doc). CUDA tensors
+    launch the kernel; CPU tensors take the plain version."""
+    args = (refbuf, qbuf, poslist, cand, next_hit, win, dsz, nrs, cfg,
+            ev_cap)
+    _check("parse_events_big", *args, big=True)
+    if refbuf.device.type == "cpu":
+        return parse_events_big_plain(*args)
+    out = _launch("parse_events_big", "lzt_parse_events_big", *args)
+    parse_events_big.launches += 1
+    return out
 
 
 #: kernel launches since the last reset (plain-version calls never count)
 parse_events.launches = 0
+parse_events_big.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -207,14 +237,77 @@ def _ext_scan(bufs, cfg, g, nr, b, dsz, dpos, rpos, max_len, live, fwd):
     return last
 
 
+#: candidates compared per chunk in the plain anchor search (bounds its
+#: memory when counts run into the thousands: tandem repeats)
+CAND_CHUNK = 256
+
+
+def _anchor_search(bufs, cfg, g, nr, b, ds, i, start, cnt, pos_f, KaP):
+    """Best (len, pos) over poslist[start : start + cnt] per pair: exact
+    LCE >= mal, longest wins, the earliest (= smallest) position breaks
+    ties. Candidates go in chunks of CAND_CHUNK; a later chunk wins only
+    with a strictly longer match."""
+    a_len = torch.zeros_like(i)
+    a_pos = torch.zeros_like(i)
+    kmax = int(cnt.max()) if cnt.numel() else 0
+    for k0 in range(0, kmax, CAND_CHUNK):
+        sel = (cnt > k0).nonzero(as_tuple=True)[0]
+        k = torch.arange(k0, min(k0 + CAND_CHUNK, kmax), device=i.device)
+        valid = k[None] < cnt[sel][:, None]
+        pp = pos_f[g[sel][:, None] * KaP
+                   + (start[sel][:, None] + k).clamp(0, KaP - 1)].long()
+        ex = lambda t: t[sel][:, None].expand(-1, k.numel())
+        ml = _lce(bufs, ex(g), ex(nr), pp, ex(b), ex(ds), ex(i),
+                  torch.zeros_like(pp), valid)
+        ok = valid & (ml >= cfg.mal)
+        c_len = torch.where(ok, ml, 0).amax(1)
+        top = ok & (ml == c_len[:, None])
+        c_pos = torch.where(top, pp, torch.iinfo(torch.long).max).amin(1)
+        better = c_len > a_len[sel]
+        a_len[sel] = torch.where(better, c_len, a_len[sel])
+        a_pos[sel] = torch.where(better, c_pos, a_pos[sel])
+    return a_len, a_pos
+
+
 def parse_events_plain(refbuf, qbuf, poslist, cand, next_hit, win, dsz,
                        nrs, cfg: ParseCfg, ev_cap: int):
-    """Plain PyTorch version of the kernel: the per-pair automaton in
-    lockstep over all G*B pairs, one decision per pair per step, with
-    masked state updates (see csrc/parse_events.cu for the semantics)."""
+    """Plain PyTorch version of ``parse_events``."""
+    G, B = cand.shape[:2]
+    LqP = qbuf.shape[1]
+    cand_f = cand.reshape(-1)
+
+    def cand_at(pid, ic):
+        cw = cand_f[pid * LqP + ic].long()
+        return cw >> 7, cw & 127
+
+    ds = dsz.long()[None].expand(G, B).reshape(-1)
+    return _automaton(refbuf, qbuf, poslist, cand_at, next_hit, win, ds,
+                      nrs, cfg, ev_cap, G, B)
+
+
+def parse_events_big_plain(refbuf, qbuf, poslist, cand, next_hit, win, dsz,
+                           nrs, cfg: ParseCfg, ev_cap: int):
+    """Plain PyTorch version of ``parse_events_big``."""
+    G, B = cand.shape[:2]
+    LqP = qbuf.shape[1]
+    cand_f = cand.reshape(-1)
+
+    def cand_at(pid, ic):
+        base = pid * (2 * LqP) + ic
+        return cand_f[base].long(), cand_f[base + LqP].long()
+
+    return _automaton(refbuf, qbuf, poslist, cand_at, next_hit, win,
+                      dsz.long().reshape(-1), nrs, cfg, ev_cap, G, B)
+
+
+def _automaton(refbuf, qbuf, poslist, cand_at, next_hit, win, ds, nrs,
+               cfg: ParseCfg, ev_cap: int, G: int, B: int):
+    """The per-pair automaton in lockstep over all G*B pairs, one decision
+    per pair per step, with masked state updates (see csrc/parse_events.cu
+    for the semantics). ``cand_at(pid, i)`` reads the candidate table:
+    (start, count) per pair; ``ds`` is the per-pair query length."""
     dev = refbuf.device
-    G, _ = refbuf.shape
-    B, LqP = qbuf.shape
+    LqP = qbuf.shape[1]
     KaP = poslist.shape[1]
     WinP = win.shape[1]
     P = G * B
@@ -227,8 +320,6 @@ def parse_events_plain(refbuf, qbuf, poslist, cand, next_hit, win, dsz,
     g = pid // B
     b = pid % B
     nr = nrs.to(L)[g]
-    ds = dsz.to(L)[b]
-    cand_f = cand.reshape(-1)
     nh_f = next_hit.reshape(-1)
     pos_f = poslist.reshape(-1)
     win_f = win.reshape(-1)
@@ -258,24 +349,10 @@ def parse_events_plain(refbuf, qbuf, poslist, cand, next_hit, win, dsz,
         ic = i.clamp(0, LqP - 1)
 
         # anchors: longest exact LCE over the candidate range
-        cw = torch.where(act, cand_f[pid * LqP + ic].to(L), 0)
-        cnt, start = cw & 127, cw >> 7
-        a_len = torch.zeros_like(i)
-        a_pos = torch.zeros_like(i)
-        kmax = int(cnt.max())
-        if kmax:
-            k = torch.arange(kmax, device=dev)
-            valid = k[None] < cnt[:, None]
-            pp = pos_f[g[:, None] * KaP
-                       + (start[:, None] + k).clamp(0, KaP - 1)].to(L)
-            ex = lambda t: t[:, None].expand(-1, kmax)
-            ml = _lce(bufs, ex(g), ex(nr), pp, ex(b), ex(ds), ex(i),
-                      torch.zeros_like(pp), valid)
-            ok = valid & (ml >= mal)
-            a_len = torch.where(ok, ml, 0).amax(1)
-            top = ok & (ml == a_len[:, None])
-            a_pos = torch.where(top, pp, big).amin(1)
-            a_pos = torch.where(a_len > 0, a_pos, 0)
+        start, cnt = cand_at(pid, ic)
+        cnt = torch.where(act, cnt, 0)
+        a_len, a_pos = _anchor_search(bufs, cfg, g, nr, b, ds, i, start,
+                                      cnt, pos_f, KaP)
         bl, bp = a_len, a_pos
 
         # synced seed search over [max(0, pred - lit_run), pred + mrd)

@@ -4,15 +4,17 @@
 random parameters for fuzzing. ``viral_set`` makes a viral-collection-
 shaped input: genomes of 20-60 kb in families whose variants carry 1-10%
 substitutions, small indels and a few N runs, plus a share of unrelated
-genomes. Codes are 0..3 for ACGT and 4 for N, as ``mutate`` and the
-FASTA writer expect.
+genomes. ``bacterial_set`` makes two species of 3 and 5 Mb genomes with
+repeat islands, IS elements and a tandem block, and two relatives each.
+Codes are 0..3 for ACGT and 4 for N, as ``mutate`` and the FASTA writer
+expect.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from lzani_tpu.params import Params
+from .params import Params
 
 _LETTERS = np.frombuffer(b"ACGTN", np.uint8)
 
@@ -107,6 +109,76 @@ def viral_set(seed: int, n: int = 256):
                      .astype(np.uint8))
     order = rng.permutation(n)
     return [names[i] for i in order], [codes[i] for i in order]
+
+
+#: species of ``bacterial_set``: (name, base length)
+SPECIES = (("spA", 3_000_000), ("spB", 5_000_000))
+#: substitution rates of each species' two relatives
+REL_RATES = (0.03, 0.06)
+
+
+def bacterial_genome(rng, L):
+    """A bacterial-shaped genome of `L` bp: a random base with an
+    rRNA-like repeat island (7 copies of a 5 kb unit), 30 copies of a
+    1.2 kb IS element, and one tandem block of a 13-mer x 150 copies
+    (its 20-mers have ~150 candidates each, past the group path's 7-bit
+    count pack)."""
+    g = rng.randint(0, 4, L).astype(np.uint8)
+    unit = rng.randint(0, 4, 5000).astype(np.uint8)
+    for _ in range(7):
+        p = rng.randint(0, L - 6000)
+        g[p:p + 5000] = unit
+    is_el = rng.randint(0, 4, 1200).astype(np.uint8)
+    for _ in range(30):
+        p = rng.randint(0, L - 1500)
+        g[p:p + 1200] = is_el
+    tandem = np.tile(rng.randint(0, 4, 13).astype(np.uint8), 150)
+    p = rng.randint(0, L - len(tandem))
+    g[p:p + len(tandem)] = tandem
+    return g
+
+
+def bacterial_relative(rng, g, rate):
+    """`g` with substitutions at `rate` and 20 structural indels of
+    100-3,000 bp."""
+    q = g.copy()
+    m = rng.rand(len(q)) < rate
+    q[m] = (q[m] + rng.randint(1, 4, m.sum())) % 4
+    for _ in range(20):
+        k = rng.randint(0, len(q) - 5000)
+        if rng.rand() < 0.5:
+            q = np.delete(q, slice(k, k + rng.randint(100, 3000)))
+        else:
+            ins = rng.randint(0, 4, rng.randint(100, 3000)).astype(np.uint8)
+            q = np.concatenate([q[:k], ins, q[k:]])
+    return np.ascontiguousarray(q)
+
+
+def bacterial_set(seed: int):
+    """(names, codes) of two bacterial species, each a base genome (3.0
+    and 5.0 Mb) and two relatives at 3% and 6% substitutions: 6 genomes,
+    30 ordered pairs, 12 of them within a species. Built like the JAX
+    package's long-genome check (scripts/test_big_tpu.py); run it with
+    ``bacterial_params()``."""
+    rng = np.random.RandomState(seed)
+    names, codes = [], []
+    for sp, L in SPECIES:
+        g = bacterial_genome(rng, L)
+        names.append(f"{sp}_base")
+        codes.append(g)
+        for rate in REL_RATES:
+            names.append(f"{sp}_rel{round(rate * 100):02d}")
+            codes.append(bacterial_relative(rng, g, rate))
+    return names, codes
+
+
+def bacterial_params() -> Params:
+    """The tuned long-genome parameters (the reference's guidance for
+    bacteria: ``--mal 20 --msl 11 --reg 80``), others at their defaults.
+    With mal > 13 every row takes the long-genome path."""
+    p = Params()
+    p.min_anchor_len, p.min_seed_len, p.min_region_len = 20, 11, 80
+    return p
 
 
 def write_fasta(path: str, names, codes) -> None:

@@ -1,6 +1,7 @@
-"""The CUDA parse kernel on a card: its event logs equal its plain PyTorch
-version's and the native oracle's, its capacity semantics match, and the
-wrapper counts launches. Every test here is marked ``cuda`` and skips
+"""The CUDA parse kernels on a card (group and long-genome paths): their
+event logs equal their plain PyTorch versions' and the native oracle's,
+the group kernel's capacity semantics match, and the wrappers count
+launches. Every test here is marked ``cuda`` and skips
 without a card. On a card:
 
     python -m pytest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
@@ -11,8 +12,12 @@ import torch
 
 from lzani_tpu.core import native_engine as ne
 from lzani_tpu.params import Params
+from lzani_tpu_torch import synth
 from lzani_tpu_torch.ops import cuda_engine as tce
-from lzani_tpu_torch.ops.parse_kernel import parse_events, parse_events_plain
+from lzani_tpu_torch.ops.parse_kernel import (parse_events,
+                                              parse_events_big,
+                                              parse_events_big_plain,
+                                              parse_events_plain)
 from lzani_tpu_torch.synth import mutate, rand_params, small_family
 
 pytestmark = pytest.mark.cuda
@@ -178,3 +183,105 @@ def test_launch_counter(dev):
     parse_events_plain(*args, ev_cap=eng.EV_CAP)
     torch.cuda.synchronize()
     assert parse_events.launches == n0 + 1
+
+
+# ---------------------------------------------------------------------------
+# long-genome kernel
+# ---------------------------------------------------------------------------
+
+def _big_args(codes, params, dev, r_list=None, force=False):
+    """One long-genome launch: `r_list` (default: every reference) x the
+    first B_big queries. `force` sends group-sized rows big."""
+    old = tce.CudaAll2All.MAX_REF_SYMS
+    if force:
+        tce.CudaAll2All.MAX_REF_SYMS = 0
+    try:
+        eng = tce.CudaAll2All(codes, params, devices=[dev])
+    finally:
+        tce.CudaAll2All.MAX_REF_SYMS = old
+    r_list = list(range(len(codes))) if r_list is None else r_list
+    eng.big_launch_shape(len(r_list), dev)
+    bidx = eng.build_big_index(r_list, dev)
+    return eng, r_list, eng.big_args(bidx, r_list, 0, dev)
+
+
+def _assert_oracle(eng, out, codes, p, r_list):
+    logs = eng.collect_big(out)
+    checked = 0
+    for g, r in enumerate(r_list):
+        for q in range(min(len(codes), eng.B_big)):
+            if q == r:
+                assert len(logs[g][q]) == 0                # no-op self pair
+            elif logs[g][q] is not None:
+                want = ne.parse_event_log(codes[r], codes[q], p)
+                assert np.array_equal(logs[g][q], want), (r, q)
+                checked += 1
+    return checked
+
+
+def _tandem_set():
+    rng = np.random.RandomState(11)
+    unit = rng.randint(0, 4, 13).astype(np.uint8)
+    base = rng.randint(0, 4, 900).astype(np.uint8)
+    g1 = np.concatenate([base[:300], np.tile(unit, 150), base[300:]])
+    q1 = g1.copy()
+    m = rng.rand(len(q1)) < 0.05
+    q1[m] = (q1[m] + rng.randint(1, 4, m.sum())) % 4
+    return [g1, q1, base, rng.randint(0, 4, 700).astype(np.uint8)]
+
+
+@pytest.mark.parametrize("mal,msl", [(11, 7), (20, 11)])
+def test_big_kernel_matches_plain_and_oracle_on_tandem_repeats(dev, mal,
+                                                               msl):
+    codes = _tandem_set()
+    p = Params()
+    p.min_anchor_len, p.min_seed_len = mal, msl
+    eng, r_list, args = _big_args(codes, p, dev, force=True)
+    out = parse_events_big(*args)
+    _assert_same_logs(out, parse_events_big_plain(*args))
+    assert _assert_oracle(eng, out, codes, p, r_list) == 12
+
+
+def test_big_kernel_on_a_2mb_related_pair(dev):
+    """A 2 Mb bacterial-shaped genome and a 3% relative with structural
+    indels, both ways, at the tuned parameters: kernel = plain = oracle."""
+    rng = np.random.RandomState(23)
+    g = synth.bacterial_genome(rng, 2_000_000)
+    codes = [g, synth.bacterial_relative(rng, g, 0.03)]
+    p = synth.bacterial_params()
+    eng, r_list, args = _big_args(codes, p, dev)
+    assert eng.LqP >= 1 << 21 and eng.G_big == 2
+    out = parse_events_big(*args)
+    _assert_same_logs(out, parse_events_big_plain(*args))
+    assert _assert_oracle(eng, out, codes, p, r_list) == 2
+
+
+@pytest.mark.parametrize("block", range(4))
+def test_big_kernel_random_stress(dev, block):
+    """Randomised sets (as test_kernel_random_stress) with a random mal in
+    [14, 26] on odd trials and the default parameters sent big on even
+    ones, ten trials per block: every log that is not a capacity fallback
+    equals the oracle (8 x 7 ordered pairs per trial)."""
+    checked = 0
+    for trial in range(10):
+        rng = np.random.RandomState(5000 + 10 * block + trial)
+        codes = _stress_set(rng)
+        p = Params()
+        if trial % 2:
+            p = rand_params(rng)
+            p.min_anchor_len = int(rng.randint(14, 27))
+        eng, r_list, args = _big_args(codes, p, dev, force=True)
+        checked += _assert_oracle(eng, parse_events_big(*args), codes, p,
+                                  r_list)
+    assert checked > 0
+
+
+def test_big_launch_counter(dev):
+    codes = _tandem_set()
+    _, _, args = _big_args(codes, Params(), dev, force=True)
+    n0, g0 = parse_events_big.launches, parse_events.launches
+    parse_events_big(*args)
+    parse_events_big_plain(*args)
+    torch.cuda.synchronize()
+    assert parse_events_big.launches == n0 + 1
+    assert parse_events.launches == g0

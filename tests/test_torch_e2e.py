@@ -14,7 +14,7 @@ from lzani_tpu.core import native_engine as ne
 from lzani_tpu.ops.pallas_engine import all2all_pallas
 from lzani_tpu.params import Params
 from lzani_tpu_torch import cli as tcli
-from lzani_tpu_torch.matcher import TorchMatcher
+from lzani_tpu_torch.matcher import Matcher
 from lzani_tpu_torch.ops import cuda_engine as tce
 from lzani_tpu_torch.ops.finalize import Finalizer
 from lzani_tpu_torch.synth import mutate, write_fasta
@@ -73,8 +73,10 @@ def test_filter_and_regions_match_native(tmp_path):
 def test_rows_routed_native_are_counted(monkeypatch):
     codes = _codes(3)
     p = Params()
-    # every composite above 1,000 symbols leaves the group path
+    # every composite above 1,000 symbols leaves the group path, and the
+    # long-genome path takes none of them
     monkeypatch.setattr(tce.CudaAll2All, "MAX_REF_SYMS", 1000)
+    monkeypatch.setattr(tce.CudaAll2All, "MAX_BIG_SYMS", 1000)
     st = {}
     got = tce.all2all_cuda(codes, p, device=CPU, stats=st)
     assert np.array_equal(got, ne.all2all(codes, p))
@@ -129,6 +131,8 @@ def test_replay_mismatch_fails_the_run(monkeypatch):
     (28, 7, "outside the CUDA kernel envelope"),   # WIN table saturates
     (14, 9, "no dense 4^mal join table")])         # long-genome routing
 def test_parameters_off_the_group_path_run_native(mal, msl, why, capsys):
+    """Parameters outside the kernels' envelope run natively; mal > 13
+    leaves the group path for the long-genome kernel (the JAX rule)."""
     codes = _codes(4)
     p = Params()
     p.min_anchor_len, p.min_seed_len = mal, msl
@@ -136,8 +140,13 @@ def test_parameters_off_the_group_path_run_native(mal, msl, why, capsys):
     got = tce.all2all_cuda(codes, p, device=CPU, stats=st)
     assert np.array_equal(got, ne.all2all(codes, p))
     assert why in capsys.readouterr().err
-    assert st["native_rows"] == len(codes) and st["launches"] == 0
-    assert st["kernel_pairs"] == 0
+    assert st["launches"] == 0 and st["kernel_pairs"] == 0
+    n = len(codes)
+    if tce.device_envelope_reason(p) is None:
+        assert st["native_rows"] == 0 and st["big_rows"] == n
+        assert st["big_pairs"] + st["big_cap_fallbacks"] == n * (n - 1)
+    else:
+        assert st["native_rows"] == n and st["big_rows"] == 0
 
 
 def _fasta(tmp_path, seed):
@@ -163,7 +172,7 @@ def test_cli_native_matches_reference_cli(tmp_path):
 
 
 def test_matcher_cuda_path_matches_native_cli(tmp_path):
-    """The whole cuda store path (TSV, ids, aln) through TorchMatcher, on
+    """The whole cuda store path (TSV, ids, aln) through the port's Matcher, on
     the CPU device, against the reference CLI's native run."""
     fa = _fasta(tmp_path, 5)
     a, b = str(tmp_path / "a.tsv"), str(tmp_path / "b.tsv")
@@ -173,7 +182,7 @@ def test_matcher_cuda_path_matches_native_cli(tmp_path):
     rc, m = tcli.run(["all2all", "--in-fasta", fa, "--out", b,
                       "--out-alignment", b + ".aln", "-t", "2", "-V", "0"],
                      device=CPU)
-    assert rc == 0 and isinstance(m, TorchMatcher)
+    assert rc == 0 and isinstance(m, Matcher)
     assert m.params.backend == "cuda"            # auto means cuda
     assert _read(a) == _read(b)
     assert _read(a[:-4] + ".ids.tsv") == _read(b[:-4] + ".ids.tsv")
