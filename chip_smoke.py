@@ -10,7 +10,7 @@ non-zero):
   1. the card: torch's device name and nvidia-smi's name and power limit;
   2. build: the CUDA parse kernels (one nvcc build of parse_events.cu,
      both C entries) and the port's native C++ engine (g++), from the
-     sources in this checkout;
+     sources in this checkout, the two compilers started together;
   Group path (default parameters, viral-sized genomes):
   3. kernel = plain: one whole group dispatch of the main path (G = 4
      references x B = 256 queries at the run's LrP/LqP buckets), the
@@ -42,6 +42,15 @@ non-zero):
      native rows, no replay mismatches, every within-species pair replayed
      from a kernel log; walls, pairs/s, kernel ms per launch, B_big and
      peak device memory.
+  Per-reference routes (the API of the JAX package's ``PallasRefIndex``
+  and ``PallasAll2All.dispatch_range``, on the group kernel):
+ 10. ``CudaRefIndex.parse_events_batch`` (the first viral genome x the
+     first 64 genomes) and ``CudaAll2All.dispatch_range`` / ``collect``
+     (that genome x the 64 queries of an engine over those genomes), each
+     with the counter set to 0 just before and read just after (one
+     launch each); kernel = plain on each route's own inputs (the plain
+     version on the host CPU); 8 sampled logs of each against the native
+     oracle.
 Then the card's name and power limit, one JSON line of the kernels (time,
 plain time and bound of each, from this run), and the result line last.
 Without a CUDA device the script exits 1 and prints no result.
@@ -55,16 +64,12 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 N_GENOMES = 256
 SEED = 2024
 N_SAMPLED = 200      # pairs checked against the oracle in phase 6
-#: the card's peaks (NVIDIA's H100 SXM data sheet): HBM bytes/s, and the
-#: non-tensor float32 rate, the sheet's closest entry for the kernels'
-#: int32 compares
-HBM_BYTES_PER_S = 3.35e12
-SCALAR_OPS_PER_S = 67e12
 
 
 def say(phase, msg):
@@ -77,46 +82,17 @@ def phase_times(marks):
                      in zip(marks, marks[1:]) if lab)
 
 
-def bound_ms(args, nev, dsz_pairs):
-    """(ms, 'bytes' or 'operations'): the least time the card could take
-    for one launch, counting what this launch's pairs need. A pair is live
-    when its dsz exceeds msl (self pairs and padding rows do nothing).
-    Bytes, each read or written once: per live pair the first dsz
-    positions of its candidate plane(s) and of next_hit; per query with a
-    live pair its longest dsz symbols; per reference with a live pair its
-    nr symbols, nr entries of its position list and its WIN table; the
-    dsz and nr inputs; every defined event record (32 B) and nev.
-    Operations: one symbol comparison per query position of every live
-    pair, at least."""
-    import torch
-
-    refbuf, qbuf, poslist, cand, next_hit, win, _, nrs, cfg = args[:9]
-    dsz = dsz_pairs.long().cpu()
-    live = dsz > cfg.msl
-    d = torch.where(live, dsz, 0)
-    planes = cand.numel() // next_hit.numel()   # 1 packed, or start + count
-    ref_live = live.any(dim=1)
-    nr = nrs.long().cpu()[ref_live]
-    nbytes = (int(d.sum()) * 4 * (planes + 1)
-              + int(d.max(dim=0).values.sum()) * qbuf.element_size()
-              + int(nr.sum()) * refbuf.element_size()
-              + int(nr.clamp(max=poslist.shape[1]).sum())
-              * poslist.element_size()
-              + int(ref_live.sum()) * win.shape[1] * win.element_size()
-              + (dsz.numel() + nrs.numel()) * 4
-              + int(nev.clamp(min=0).sum()) * 32 + nev.numel() * 4)
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = int(d.sum()) / SCALAR_OPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def kernel_vs_plain(kernel, plain, args, dsz_pairs, reps):
+def kernel_vs_plain(kernel, plain, args, dsz_pairs, reps, plain_on=None):
     """Time `kernel` (CUDA events, the mean of `reps` launches after one
     that also serves the comparison) and `plain` (host clock, one call) on
-    the same card inputs; every pair's nev and defined records must be
-    equal. The counter is restored: these launches do not count."""
+    the same inputs: the card's, or with ``plain_on="cpu"`` copies of them
+    on the host CPU (where a small launch's plain version runs faster);
+    every pair's nev and defined records must be equal. The counter is
+    restored: these launches do not count."""
     import numpy as np
     import torch
+
+    from lzani_tpu_torch.utils.runinfo import launch_bound_ms
 
     launches0 = kernel.launches
     ev_k, nev_k = kernel(*args)
@@ -130,8 +106,10 @@ def kernel_vs_plain(kernel, plain, args, dsz_pairs, reps):
     torch.cuda.synchronize()
     ms = start.elapsed_time(stop) / reps
     kernel.launches = launches0
+    p_args = args if plain_on is None else [
+        a.to(plain_on) if isinstance(a, torch.Tensor) else a for a in args]
     t0 = time.perf_counter()
-    ev_p, nev_p = plain(*args)
+    ev_p, nev_p = plain(*p_args)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
 
@@ -148,10 +126,11 @@ def kernel_vs_plain(kernel, plain, args, dsz_pairs, reps):
     if err:
         raise AssertionError(f"{kernel.__name__}: kernel event logs differ "
                              f"from plain (max abs err {err})")
-    bound, bound_by = bound_ms(args, nev_k, dsz_pairs)
+    bound, bound_by = launch_bound_ms(args, nev_k, dsz_pairs)
     return dict(pairs=nk.size, records=int(defined.sum()), ms=ms,
                 plain_ms=plain_ms, max_abs_err=err, bound_ms=bound,
-                bound_by=bound_by, ev=ev_k, nev=nev_k)
+                bound_by=bound_by, ev=ev_k, nev=nev_k,
+                plain_on=plain_on or "card")
 
 
 def check_kernel(dev, codes, params):
@@ -163,13 +142,9 @@ def check_kernel(dev, codes, params):
 
     eng = ce.CudaAll2All(codes, params, devices=[dev])
     gi = eng.build_group_index([0, 1, 2, 3], dev)
-    q_rows, dsz = eng.Q[dev][:eng.B], eng.DSZ[dev][:eng.B]
-    qbuf, cand, nh, _ = ce.query_prep(q_rows, dsz, gi.ptab, eng.LqP,
-                                      eng.cfg.mal, eng.cfg.msl, eng.CNT_CAP)
-    args = (gi.refbuf, qbuf, gi.poslist, cand, nh, gi.win, dsz.contiguous(),
-            gi.nrs, eng.cfg, eng.EV_CAP)
+    args, _ = eng.group_args(gi, 0, dev)
     k = kernel_vs_plain(parse_events, parse_events_plain, args,
-                        dsz.expand(4, -1), reps=3)
+                        args[6].expand(4, -1), reps=3)
     return dict(k, LrP=gi.LrP, LqP=eng.LqP, B=eng.B)
 
 
@@ -242,6 +217,60 @@ def check_big_kernel(dev, bact_codes, bact_names, params):
     full["oracle"] = [f"{bact_names[r]}/{bact_names[q]} "
                       f"({len(logs[r][q])} events)" for r, q in sampled]
     return red, full
+
+
+def check_ref_routes(dev, names, codes, params, kernel, plain):
+    """Phase 10: the per-reference routes, each driven through its entry
+    point with `kernel`'s counter set to 0 just before and read just after:
+    ``CudaRefIndex.parse_events_batch`` (the first viral genome x the
+    first 64 genomes, one launch) and ``CudaAll2All.dispatch_range`` /
+    ``collect`` (that reference x the B = 64 queries of an engine over the
+    same 64 genomes). Each route's kernel is then held against the plain
+    version on the route's own inputs (on the host CPU: at G = 1 it runs
+    there about twice as fast as on the card), and 8 of its logs against
+    the native oracle."""
+    import numpy as np
+
+    from lzani_tpu_torch.core import native_engine as ne
+    from lzani_tpu_torch.ops import cuda_engine as ce
+
+    queries = codes[:64]
+    kernel.launches = 0
+    idx = ce.CudaRefIndex(codes[0], params)
+    logs_b = idx.parse_events_batch(queries)
+    launches_b = kernel.launches
+
+    eng = ce.CudaAll2All(queries, params, devices=[dev])
+    kernel.launches = 0
+    logs_r = eng.collect(eng.dispatch_range(0, 0))
+    launches_r = kernel.launches
+
+    args, ovf = idx.batch_args(queries)
+    res = kernel_vs_plain(kernel, plain, args, args[6][None], reps=3,
+                          plain_on="cpu")
+    out = {"batch": dict(res, launches=launches_b, B=len(queries),
+                         LqP=args[1].shape[1], skipped=int(ovf.sum()),
+                         logs=logs_b)}
+    args, _ = eng.group_args(eng.build_index(0, dev), 0, dev)
+    res = kernel_vs_plain(kernel, plain, args, args[6][None], reps=3,
+                          plain_on="cpu")
+    out["range"] = dict(res, launches=launches_r, B=eng.B, LqP=eng.LqP,
+                        logs=logs_r)
+
+    rng = np.random.RandomState(SEED)
+    for key, r in out.items():
+        if r["launches"] != 1:
+            raise AssertionError(f"{key} route launched the kernel "
+                                 f"{r['launches']} times, not once")
+        got = [b for b in rng.choice(r["B"], 8, replace=False)
+               if r["logs"][b] is not None]
+        for b in got:
+            want = ne.parse_event_log(codes[0], codes[b], params)
+            if not np.array_equal(r["logs"][b], want):
+                raise AssertionError(f"{key} route: pair ({names[0]}, "
+                                     f"{names[b]}) differs from the oracle")
+        r["oracle"] = len(got)
+    return out
 
 
 def sampled_oracle_check(dev, codes, params, rng):
@@ -342,9 +371,10 @@ def main() -> int:
 
     from lzani_tpu_torch import synth
     from lzani_tpu_torch.core import native_engine
-    from lzani_tpu_torch.ops import build
-    from lzani_tpu_torch.ops.parse_kernel import (SOURCE, parse_events,
-                                                  parse_events_big)
+    from lzani_tpu_torch.ops.parse_kernel import load as load_kernels
+    from lzani_tpu_torch.ops.parse_kernel import (parse_events,
+                                                  parse_events_big,
+                                                  parse_events_plain)
     from lzani_tpu_torch.params import Params
     from lzani_tpu_torch.utils.runinfo import (card_name_and_power,
                                                cli_timings)
@@ -355,15 +385,19 @@ def main() -> int:
     smi = card_name_and_power()
     say(1, f"device {kind} (count {count}); nvidia-smi: {smi}")
 
-    t0 = time.perf_counter()
-    build.load_library("parse_events", [SOURCE])
-    t_nvcc = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    native_engine.get_lib()
-    t_gxx = time.perf_counter() - t0
+    def timed(fn):
+        t0 = time.perf_counter()
+        fn()
+        return time.perf_counter() - t0
+
+    # one compiler per source, started together
+    with ThreadPoolExecutor(2) as pool:
+        nvcc = pool.submit(timed, load_kernels)
+        gxx = pool.submit(timed, native_engine.get_lib)
+        t_nvcc, t_gxx = nvcc.result(), gxx.result()
     say(2, f"built parse_events.cu (lzt_parse_events, lzt_parse_events_big) "
-           f"with nvcc in {t_nvcc:.2f} s; the port's native engine "
-           f"(lzani_core.cpp, g++) in {t_gxx:.2f} s")
+           f"with nvcc in {t_nvcc:.2f} s and the port's native engine "
+           f"(lzani_core.cpp, g++) in {t_gxx:.2f} s, in parallel")
 
     # ---- group path --------------------------------------------------
     names, codes = synth.viral_set(seed=SEED, n=N_GENOMES)
@@ -475,18 +509,49 @@ def main() -> int:
                f"native rows 0, replay mismatches 0; peak device memory "
                f"{peak / 2**30:.2f} GiB; phases: {phase_times(m.times)}; "
                f"native phases: {cli_timings(nat_err)} [{smi}]")
+
+    # ---- per-reference routes ------------------------------------------
+    rr = check_ref_routes(dev, names, codes, params, parse_events,
+                          parse_events_plain)
+    for key, what in (("batch", "CudaRefIndex.parse_events_batch"),
+                      ("range", "CudaAll2All.dispatch_range")):
+        r = rr[key]
+        say(10, f"{what} (G=1, B={r['B']}, LqP={r['LqP']}): launches "
+                f"{r['launches']}, kernel == plain on {r['pairs']} pairs, "
+                f"{r['records']} records; {r['oracle']} sampled logs equal "
+                f"the oracle; kernel {r['ms']:.3f} ms, plain "
+                f"{r['plain_ms']:.1f} ms (host CPU), bound "
+                f"{r['bound_ms']:.4f} ms "
+                f"({r['bound_by']}) [{smi}]")
     if any(mod == "jax" or mod.startswith(("jax.", "lzani_tpu."))
            or mod == "lzani_tpu" for mod in sys.modules):
         raise AssertionError("jax or the JAX package was imported")
+
+    def route(name, replaces, r):
+        """The kernel line's entry of a per-reference route: the group
+        kernel (lzt_parse_events) on that route's inputs."""
+        return {"name": name, "route": "cuda",
+                "source": "lzani_tpu_torch/csrc/parse_events.cu",
+                "replaces": replaces, "entry": "lzt_parse_events",
+                "launches": r["launches"], "max_abs_err": r["max_abs_err"],
+                "ms": r["ms"], "plain_ms": r["plain_ms"],
+                "plain_on": r["plain_on"], "bound_ms": r["bound_ms"],
+                "bound_by": r["bound_by"], "library_ms": None}
 
     print(smi, flush=True)
     print(json.dumps({"kernels": [
         {"name": "parse_events", "route": "cuda",
          "source": "lzani_tpu_torch/csrc/parse_events.cu",
          "replaces": "lzani_tpu/ops/pallas_v7.py:56",
+         "also_serves": ["lzani_tpu/ops/pallas_engine.py:2214",
+                         "lzani_tpu/ops/pallas_v5.py:56"],
          "launches": launches, "max_abs_err": k["max_abs_err"],
          "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
          "bound_by": k["bound_by"], "library_ms": None},
+        route("parse_events_batch", "lzani_tpu/ops/pallas_engine.py:1353",
+              rr["batch"]),
+        route("dispatch_range", "lzani_tpu/ops/pallas_engine.py:2337",
+              rr["range"]),
         {"name": "parse_events_big", "route": "cuda",
          "source": "lzani_tpu_torch/csrc/parse_events.cu",
          "replaces": "lzani_tpu/ops/pallas_engine.py:307",

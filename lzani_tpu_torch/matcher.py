@@ -39,6 +39,7 @@ class Matcher:
         self.filter: PairFilter | None = None
         self.times: list[tuple[float, str]] = []
         self.engine_stats: dict | None = None
+        self._device_setup: threading.Thread | None = None
 
     def _log(self, msg: str, level: int = 1) -> None:
         if self.params.verbosity_level >= level:
@@ -47,10 +48,39 @@ class Matcher:
     def _mark(self, label: str) -> None:
         self.times.append((time.perf_counter(), label))
 
+    def _start_device(self):
+        """For the cuda backend on a card: a started thread that creates
+        the CUDA context and loads the kernels' and the native engine's
+        libraries while the sequences load (no kernel is launched), or
+        None."""
+        if self.params.backend not in ("cuda", "auto"):
+            return None
+        import torch
+
+        if self.device is None and not torch.cuda.is_available():
+            return None                 # all2all_cuda says why it stops
+        dev = (torch.device("cuda", torch.cuda.current_device())
+               if self.device is None else torch.device(self.device))
+        if dev.type != "cuda":
+            return None
+
+        def setup():
+            from .core import native_engine
+            from .ops import parse_kernel
+
+            torch.empty(1, device=dev)
+            parse_kernel.load()
+            native_engine.get_lib()
+
+        th = threading.Thread(target=setup, daemon=True)
+        th.start()
+        return th
+
     def run_all2all(self) -> bool:
         p = self.params
         p.adjust_threads()
         self._mark("")
+        self._device_setup = self._start_device()
 
         self._log("Loading sequences")
         self.store = load_store(p)
@@ -120,6 +150,8 @@ class Matcher:
         elif p.backend in ("cuda", "auto"):
             from .ops.cuda_engine import all2all_cuda
 
+            if self._device_setup is not None:
+                self._device_setup.join()
             stats: dict = {}
             triples = all2all_cuda(self.store.codes, p, filter_csr=csr,
                                    region_path=region_path,

@@ -25,6 +25,12 @@ dispatch of G_big references x B_big queries builds a two-plane
 candidate table with unbounded counts and launches the big kernel. Only
 rows above MAX_BIG_SYMS run on the native engine.
 
+The per-reference API of the JAX package runs on the group kernel too,
+as groups of G = 1 with the join and the prep on the device:
+``CudaRefIndex`` (``PallasRefIndex``: one reference x a batch of query
+sequences) and ``CudaAll2All.dispatch_range`` / ``collect`` /
+``run_range`` (one reference x B queries of the engine).
+
 Everything here is plain PyTorch on an explicit ``torch.device``; the
 only kernels written by hand are ``parse_kernel.parse_events`` and
 ``parse_kernel.parse_events_big``.
@@ -69,10 +75,13 @@ def pack3_rows(codes: np.ndarray) -> np.ndarray:
     (the io/packing.py three-in-byte layout, row-wise)."""
     R, L = codes.shape
     Lp = -(-L // 3)
-    c = np.zeros((R, Lp * 3), np.uint16)
+    c = np.zeros((R, Lp * 3), np.uint8)
     c[:, :L] = codes
     c = c.reshape(R, Lp, 3)
-    return (c[:, :, 0] * 36 + c[:, :, 1] * 6 + c[:, :, 2]).astype(np.uint8)
+    out = c[:, :, 0] * np.uint8(36)       # at most 5 * 43 = 215: no wrap
+    out += c[:, :, 1] * np.uint8(6)
+    out += c[:, :, 2]
+    return out
 
 
 def pack_bits_i32(bits: np.ndarray, pad_words: int) -> np.ndarray:
@@ -230,16 +239,22 @@ class GroupIndex:
                                            cfg.mqd).reshape(-1), 128)
              for n in nrs], axis=0)                          # (G, WinP)
         self.WinP = wfs.shape[1]
-        rbp = pack3_rows(bufs)
-        rbp_padded = np.zeros((G, _pad128(rbp.shape[1])), np.uint8)
-        rbp_padded[:, :rbp.shape[1]] = rbp
         dev = torch.device(device)
-        self.refbuf_p = torch.from_numpy(rbp_padded).to(dev)
         self.win = torch.from_numpy(wfs).to(dev)
         self.nrs = torch.from_numpy(nrs).to(dev)
+        self._join(self._upload(bufs, dev), cfg)
+
+    def _upload(self, bufs, dev):
+        """Upload the (G, LrP) uint8 buffers in the packed transfer form
+        (``refbuf_p``) and unpack them on the device; returns the codes
+        the join reads."""
+        rbp = pack3_rows(bufs)
+        rbp_padded = np.zeros((self.G, _pad128(rbp.shape[1])), np.uint8)
+        rbp_padded[:, :rbp.shape[1]] = rbp
+        self.refbuf_p = torch.from_numpy(rbp_padded).to(dev)
         refbuf = dev_unpack3(self.refbuf_p, self.LrP)
         self.refbuf = refbuf.to(torch.uint8).contiguous()
-        self._join(refbuf, cfg)
+        return refbuf
 
     def _join(self, refbuf, cfg):
         self.ptab, self.poslist = group_join(refbuf, cfg.mal, self.KaP)
@@ -252,8 +267,70 @@ class BigIndex(GroupIndex):
     table: ``keys`` (G, LrP) int64 sorted k-mer keys and ``poslist``
     (G, KaP) int32 positions in the same order."""
 
+    def _upload(self, bufs, dev):
+        """The buffers go up as they are (no ``refbuf_p``): at megabase
+        sizes packing them on the host costs more than the transfer it
+        saves."""
+        self.refbuf = torch.from_numpy(bufs).to(dev)
+        return self.refbuf
+
     def _join(self, refbuf, cfg):
         self.keys, self.poslist = big_ref_join(refbuf, cfg.mal, self.KaP)
+
+
+class CudaRefIndex:
+    """One reference for the event-log kernel (counterpart of
+    ``PallasRefIndex``, pallas_engine.py:1195-1336): a one-reference
+    ``GroupIndex`` (buffer, WIN table, the join built on the device); each
+    query batch goes through ``query_prep`` and one launch of
+    ``parse_events`` (G = 1 reference x B = len(queries)). `device`
+    defaults to the current CUDA device; a CPU device runs the kernel's
+    plain version (tests)."""
+
+    #: records per query of the JAX package's buffer; logs of more than
+    #: MAXEV - 16 events fall back to the native engine, as there
+    MAXEV = 2176
+
+    def __init__(self, codes: np.ndarray, params, device=None):
+        self.cfg = ParseCfg.from_params(params)
+        self.device = (torch.device(device) if device is not None else
+                       torch.device("cuda", torch.cuda.current_device()))
+        self.gidx = GroupIndex([codes], params, self.device)
+
+    def batch_args(self, queries: list):
+        """(arguments of ``parse_events``, (1, B) overflow flags) of one
+        batch: a query with an anchor bucket over CNT_CAP is flagged."""
+        cfg, gi = self.cfg, self.gidx
+        qbs = [query_buffer_np(q, cfg.mrd) for q in queries]
+        dsz = np.array([len(qb) for qb in qbs], np.int32)
+        LqP = _bucket(int(dsz.max()) + 1024)
+        rows = np.full((len(qbs), LqP), SYM_N_SEQ, np.uint8)
+        for b, qb in enumerate(qbs):
+            rows[b, :len(qb)] = qb
+        dsz_d = torch.from_numpy(dsz).to(self.device)
+        qbuf, cand, next_hit, overflow = query_prep(
+            torch.from_numpy(pack3_rows(rows)).to(self.device), dsz_d,
+            gi.ptab, LqP, cfg.mal, cfg.msl, CudaAll2All.CNT_CAP)
+        return ((gi.refbuf, qbuf, gi.poslist, cand, next_hit, gi.win, dsz_d,
+                 gi.nrs, cfg, self.MAXEV - 16), overflow)
+
+    def parse_events_batch(self, queries: list) -> list:
+        """Event logs of a query batch, one launch: a list of int32 (n, 8)
+        arrays, None where the query must be parsed natively (an anchor
+        bucket over CNT_CAP, an unfinished parse, more than MAXEV - 16
+        events)."""
+        args, overflow = self.batch_args(queries)
+        return _download_logs(*parse_events(*args), self.MAXEV - 16,
+                              overflow.cpu().numpy())[0]
+
+    def parse_events(self, q_codes: np.ndarray) -> np.ndarray:
+        """One query's event log; raises where it falls back."""
+        ev = self.parse_events_batch([q_codes])[0]
+        if ev is None:
+            raise RuntimeError("CudaRefIndex.parse_events: kernel fallback "
+                               "(anchor bucket over CNT_CAP or more than "
+                               "MAXEV - 16 events)")
+        return ev
 
 
 def state_from_jax(q_packed, dsz, refbuf_p, win, nrs, device, big=None):
@@ -346,11 +423,12 @@ class CudaAll2All:
         #: events per long-genome pair (pallas_engine.py:2511)
         self.EV_CAP_BIG = max(self.EV_CAP, self.LqP // 32)
         self.G_big = self.B_big = 0         # set by big_launch_shape
-        # queries per dispatch. A dispatch lasts as long as its slowest
-        # warp (one thread per pair), so 256 queries (1024 pairs) cost no
-        # more per launch than the JAX engine's 64: 651.3 vs 649.3 ms at
-        # G = 4 on chip_smoke.py's 256-genome set (dispatch_probe.py; H100
-        # 80GB HBM3 at 700 W; PERF.md)
+        # queries per dispatch. One warp per pair: a dispatch lasts about
+        # as long as its slowest pair, so 256 queries (1024 pairs) cost
+        # little more per launch than the JAX engine's 64: 28.17 vs 27.17
+        # ms at G = 4 on chip_smoke.py's 256-genome set, whose heaviest
+        # pair alone takes 25.7-26.3 ms (dispatch_probe.py; NVIDIA H100
+        # 80GB HBM3, 700.00 W; PERF.md)
         self.B = min(256, _bucket(n, lo=8))
         n_pad = -(-n // self.B) * self.B
         qb = np.full((n_pad, self.LqP), SYM_N_SEQ, np.uint8)
@@ -386,10 +464,10 @@ class CudaAll2All:
         it = torch.as_tensor(np.asarray(idx, np.int64), device=dev)
         return self.Q[dev][it], self.DSZ[dev][it]
 
-    def dispatch_group(self, gidx: GroupIndex, lo, device=None, qrows=None):
-        """Prep + kernel for G references x the B queries [lo, lo + B)
-        (or the pre-gathered `qrows`). Returns device tensors
-        (ev, nev, overflow); nothing is synchronised."""
+    def group_args(self, gidx: GroupIndex, lo, device=None, qrows=None):
+        """Prep of a group dispatch: (the arguments of ``parse_events``
+        for the references of `gidx` x the B queries [lo, lo + B) or the
+        pre-gathered `qrows`, the (G, B) overflow flags)."""
         dev = device or self.devices[0]
         cfg, B = self.cfg, self.B
         if qrows is None:
@@ -398,10 +476,14 @@ class CudaAll2All:
         qbuf, cand, next_hit, overflow = query_prep(
             q_rows, dsz_b, gidx.ptab, self.LqP, cfg.mal, cfg.msl,
             self.CNT_CAP)
-        ev, nev = parse_events(gidx.refbuf, qbuf, gidx.poslist, cand,
-                               next_hit, gidx.win, dsz_b.contiguous(),
-                               gidx.nrs, cfg, self.EV_CAP)
-        return ev, nev, overflow
+        return ((gidx.refbuf, qbuf, gidx.poslist, cand, next_hit, gidx.win,
+                 dsz_b.contiguous(), gidx.nrs, cfg, self.EV_CAP), overflow)
+
+    def dispatch_group(self, gidx: GroupIndex, lo, device=None, qrows=None):
+        """Prep + kernel (``group_args``). Returns device tensors (ev, nev,
+        overflow); nothing is synchronised."""
+        args, overflow = self.group_args(gidx, lo, device, qrows)
+        return (*parse_events(*args), overflow)
 
     def collect_group(self, handles):
         """Download a dispatch -> out[g][b]: an (n, 8) int32 event log, or
@@ -410,6 +492,34 @@ class CudaAll2All:
         ev, nev, overflow = handles
         return _download_logs(ev, nev, self.EV_CAP, overflow.cpu().numpy())
 
+    # ---- one reference x a query range (pallas_engine.py:2584-2647) -----
+
+    def build_index(self, r: int, device=None) -> GroupIndex:
+        """Device index of reference r alone (G = 1, at its own length
+        buckets; the join is built on the device)."""
+        return GroupIndex([self.codes[r]], self.params,
+                          device or self.devices[0])
+
+    def dispatch_range(self, r: int, lo: int, device=None, idx=None):
+        """Prep + kernel for reference r x the B queries [lo, lo + B):
+        device tensors (ev (B, EV_CAP + 1, 8), nev (B,), overflow (B,));
+        nothing is synchronised. `idx` is ``build_index(r)``, made here
+        when not given."""
+        dev = device or self.devices[0]
+        if idx is None:
+            idx = self.build_index(r, dev)
+        ev, nev, overflow = self.dispatch_group(idx, lo, dev)
+        return ev[0], nev[0], overflow[0]
+
+    def collect(self, handles):
+        """Download a ``dispatch_range`` -> B event logs, None where the
+        pair must be parsed natively (as ``collect_group``)."""
+        ev, nev, overflow = handles
+        return self.collect_group((ev[None], nev[None], overflow[None]))[0]
+
+    def run_range(self, r: int, lo: int):
+        return self.collect(self.dispatch_range(r, lo))
+
     # ---- long-genome path ----------------------------------------------
 
     def big_launch_shape(self, n_big: int, device=None):
@@ -417,7 +527,12 @@ class CudaAll2All:
         long-genome launch. The JAX package caps B_big at 4 to guard a TPU
         watchdog; here both come from memory: the most pairs whose buffers
         fit a quarter of the card's free memory (two launches are in
-        flight), B_big a power of two <= B."""
+        flight), B_big a power of two <= B. Each pair is a warp of its
+        own, so a launch lasts about as long as its slowest pair, and
+        more pairs per launch cost little until the warps outnumber what
+        the SMs hold at once (the bacterial set's 48 pairs: one launch of
+        75.7-76.7 ms; dispatch_probe.py, NVIDIA H100 80GB HBM3, 700.00
+        W)."""
         dev = torch.device(device or self.devices[0])
         budget = (torch.cuda.mem_get_info(dev)[0] // 4 if dev.type == "cuda"
                   else self.CPU_BIG_BUDGET)

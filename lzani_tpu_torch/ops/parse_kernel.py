@@ -28,7 +28,12 @@ ext, 0, 0, 0} and ``nev`` (G, B) int32, -1 when the parse did not reach
 records of a pair are defined.
 
 A wrapper launches its kernel for CUDA tensors (or raises) and takes the
-plain version only for CPU tensors. Each wrapper counts its launches.
+plain version only for CPU tensors. Each wrapper counts its launches. A
+launch runs one warp per pair (G x B warps; csrc/parse_events.cu says
+how they are grouped into blocks), so its time is that of its slowest
+pair once the card holds every warp at once. ``parse_events`` also
+serves the per-reference routes (``CudaRefIndex``, ``dispatch_range``:
+G = 1).
 """
 
 from __future__ import annotations
@@ -80,7 +85,8 @@ def _check(name, refbuf, qbuf, poslist, cand, next_hit, win, dsz, nrs,
         raise ValueError(f"{name}: a buffer of 2^31 or more positions")
 
 
-def _lib() -> ctypes.CDLL:
+def load() -> ctypes.CDLL:
+    """Build (at first use) and load the kernels' library."""
     lib = build.load_library("parse_events", [SOURCE])
     for fn in (lib.lzt_parse_events, lib.lzt_parse_events_big):
         if fn.argtypes is None:  # pointers and the stream must not be cut
@@ -90,10 +96,11 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _launch(name, entry, refbuf, qbuf, poslist, cand, next_hit, win, dsz,
+def _launch(name, fn, refbuf, qbuf, poslist, cand, next_hit, win, dsz,
             nrs, cfg: ParseCfg, ev_cap: int):
-    """Allocate the outputs and launch the C entry `entry` on the current
-    stream of refbuf's device; raises when the launch is refused."""
+    """Allocate the outputs and launch the C entry `fn` (a function of
+    ``load()``) on the current stream of refbuf's device; raises when the
+    launch is refused."""
     dev = refbuf.device
     if dev.type != "cuda":
         raise ValueError(f"{name}: unsupported device {dev}")
@@ -102,7 +109,6 @@ def _launch(name, entry, refbuf, qbuf, poslist, cand, next_hit, win, dsz,
     evc = ev_cap + 1
     ev = torch.empty((G, B, evc, 8), dtype=torch.int32, device=dev)
     nev = torch.empty((G, B), dtype=torch.int32, device=dev)
-    fn = getattr(_lib(), entry)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(refbuf.data_ptr(), qbuf.data_ptr(), poslist.data_ptr(),
@@ -125,7 +131,7 @@ def parse_events(refbuf, qbuf, poslist, cand, next_hit, win, dsz, nrs,
     _check("parse_events", *args, big=False)
     if refbuf.device.type == "cpu":
         return parse_events_plain(*args)
-    out = _launch("parse_events", "lzt_parse_events", *args)
+    out = _launch("parse_events", load().lzt_parse_events, *args)
     parse_events.launches += 1
     return out
 
@@ -140,7 +146,7 @@ def parse_events_big(refbuf, qbuf, poslist, cand, next_hit, win, dsz, nrs,
     _check("parse_events_big", *args, big=True)
     if refbuf.device.type == "cpu":
         return parse_events_big_plain(*args)
-    out = _launch("parse_events_big", "lzt_parse_events_big", *args)
+    out = _launch("parse_events_big", load().lzt_parse_events_big, *args)
     parse_events_big.launches += 1
     return out
 

@@ -174,6 +174,87 @@ def test_kernel_random_stress(dev, block):
     assert checked > 0
 
 
+@pytest.mark.parametrize("block", range(2))
+def test_kernel_tie_break_stress(dev, block):
+    """Tandem repeats of short units (seed positions one period either side
+    of pred tie on length and distance; anchors tie on length), mutated
+    queries, aw above 32 on every trial: group kernel = plain = oracle, and
+    the big kernel (mal 14-20) = plain = oracle, ten trials per block."""
+    checked = 0
+    for trial in range(10):
+        rng = np.random.RandomState(9000 + 10 * block + trial)
+        unit = rng.randint(0, 4, rng.randint(2, 13)).astype(np.uint8)
+        L = int(rng.randint(800, 6000))
+        flank = rng.randint(0, 4, 200).astype(np.uint8)
+        ref = np.concatenate([flank, np.tile(unit, L // len(unit) + 1)[:L],
+                              flank[::-1]])
+        codes = [ref] + [mutate(rng, ref, rate, n_ns=k, indels=k)
+                         for k, rate in enumerate((0.005, 0.02, 0.06))]
+        p = rand_params(rng)
+        p.approx_window = int(rng.randint(33, 90))
+        p.approx_mismatches = int(rng.randint(1, p.approx_window))
+        p.max_dist_in_ref = int(rng.randint(2 * len(unit) + 2, 64))
+        eng, args, ovf = _group_args(codes, p, [0, 1, 2, 3], dev)
+        out = parse_events(*args, ev_cap=eng.EV_CAP)
+        _assert_same_logs(out, parse_events_plain(*args, ev_cap=eng.EV_CAP))
+        logs = eng.collect_group((*out, ovf))
+        for r in range(4):
+            for q in range(4):
+                if q != r and logs[r][q] is not None:
+                    want = ne.parse_event_log(codes[r], codes[q], p)
+                    assert np.array_equal(logs[r][q], want), (trial, r, q)
+                    checked += 1
+        p.min_anchor_len = int(rng.randint(14, 21))
+        p.min_seed_len = min(p.min_seed_len, p.min_anchor_len - 1)
+        beng, r_list, bargs = _big_args(codes, p, dev, force=True)
+        bout = parse_events_big(*bargs)
+        _assert_same_logs(bout, parse_events_big_plain(*bargs))
+        checked += _assert_oracle(beng, bout, codes, p, r_list)
+    assert checked > 0
+
+
+def test_ref_index_batch_on_card(dev):
+    """CudaRefIndex.parse_events_batch on the card: one launch, kernel =
+    plain on the same inputs, logs = oracle, the over-CNT_CAP query None."""
+    rng = np.random.RandomState(5)
+    unit = rng.randint(0, 4, 13).astype(np.uint8)
+    ref = np.concatenate([rng.randint(0, 4, 9000).astype(np.uint8),
+                          np.tile(unit, 140)])
+    qs = [mutate(rng, ref[:8000], rate, n_ns=2, indels=3)
+          for rate in (0.0, 0.01, 0.05, 0.12)]
+    qs += [rng.randint(0, 4, 5000).astype(np.uint8), ref[8500:].copy()]
+    p = Params()
+    idx = tce.CudaRefIndex(ref, p, device=dev)
+    args, overflow = idx.batch_args(qs)
+    assert overflow.cpu().tolist() == [[False] * 5 + [True]]
+    _assert_same_logs(parse_events(*args), parse_events_plain(*args))
+    n0 = parse_events.launches
+    logs = idx.parse_events_batch(qs)
+    assert parse_events.launches == n0 + 1
+    assert logs[-1] is None
+    for q, ev in zip(qs[:-1], logs[:-1]):
+        assert np.array_equal(ev, ne.parse_event_log(ref, q, p))
+
+
+def test_dispatch_range_on_card(dev):
+    """CudaAll2All.dispatch_range / collect / run_range on the card for
+    every reference of the small family: kernel = plain = oracle."""
+    codes = small_family()
+    p = Params()
+    eng = tce.CudaAll2All(codes, p, devices=[dev])
+    for r in range(len(codes)):
+        idx = eng.build_index(r, dev)
+        args, _ = eng.group_args(idx, 0, dev)
+        _assert_same_logs(parse_events(*args), parse_events_plain(*args))
+        logs = eng.collect(eng.dispatch_range(r, 0, dev, idx))
+        assert len(logs) == eng.B
+        for q in range(len(codes)):
+            want = ne.parse_event_log(codes[r], codes[q], p)
+            assert np.array_equal(logs[q], want), (r, q)
+        assert all(np.array_equal(a, b) for a, b in
+                   zip(eng.run_range(r, 0)[:len(codes)], logs))
+
+
 def test_launch_counter(dev):
     codes = small_family()
     p = Params()
@@ -251,6 +332,21 @@ def test_big_kernel_on_a_2mb_related_pair(dev):
     p = synth.bacterial_params()
     eng, r_list, args = _big_args(codes, p, dev)
     assert eng.LqP >= 1 << 21 and eng.G_big == 2
+    out = parse_events_big(*args)
+    _assert_same_logs(out, parse_events_big_plain(*args))
+    assert _assert_oracle(eng, out, codes, p, r_list) == 2
+
+
+def test_big_kernel_on_a_9mb_related_pair(dev):
+    """The top of the bacterial band: a 9 Mb genome and a 3% relative with
+    structural indels, both ways, at the tuned parameters: kernel = plain
+    = oracle."""
+    rng = np.random.RandomState(29)
+    g = synth.bacterial_genome(rng, 9_000_000)
+    codes = [g, synth.bacterial_relative(rng, g, 0.03)]
+    p = synth.bacterial_params()
+    eng, r_list, args = _big_args(codes, p, dev)
+    assert eng.LqP == 1 << 24 and eng.G_big == 2
     out = parse_events_big(*args)
     _assert_same_logs(out, parse_events_big_plain(*args))
     assert _assert_oracle(eng, out, codes, p, r_list) == 2

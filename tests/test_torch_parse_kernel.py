@@ -92,6 +92,26 @@ def test_random_params_and_mutations(trial):
         assert np.array_equal(ev, ne.parse_event_log(codes[r], codes[qq], p))
 
 
+@pytest.mark.parametrize("aw,am", [(11, 5), (15, 7), (32, 9), (33, 9),
+                                   (40, 12)])
+def test_approx_window_matches_oracle(aw, am):
+    """Extension windows below, at and above the 32 positions of one warp
+    step (the kernel takes the misses leaving the window from the last
+    64 positions' mask up to aw = 32, and re-reads them above)."""
+    rng = np.random.RandomState(aw)
+    base = rng.randint(0, 4, 1200).astype(np.uint8)
+    codes = [base, mutate(rng, base, 0.08, n_ns=2, indels=2),
+             mutate(rng, base, 0.2, n_ns=0, indels=1),
+             rng.randint(0, 4, 500).astype(np.uint8)]
+    p = Params()
+    p.approx_window, p.approx_mismatches = aw, am
+    logs = _group_logs(tce.CudaAll2All(codes, p, devices=[CPU]),
+                       [0, 1, 2, 3])
+    for (r, q), ev in logs.items():
+        assert ev is not None
+        assert np.array_equal(ev, ne.parse_event_log(codes[r], codes[q], p))
+
+
 def test_query_bucket_above_2_18_matches_oracle():
     """Queries of ~260 kb (2^18 < LqP <= 2^19: the JAX engine's v3 group
     route) stay on the port's group path and match the oracle."""
