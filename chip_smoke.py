@@ -3,8 +3,10 @@
 
     python3 chip_smoke.py
 
-Two paths of the port are driven end to end through its CLI, each with
-its kernel's launch counter set to 0 just before and read just after.
+Three paths of the port are driven end to end through its CLI, each
+with its kernel's launch counter set to 0 just before and read just after:
+the cuda backend's group path, its long-genome path, and the hybrid
+backend (the default).
 Phases (each prints one line; any failure raises, so the exit code is
 non-zero):
   1. the card: torch's device name and nvidia-smi's name and power limit;
@@ -51,8 +53,24 @@ non-zero):
      launch each); kernel = plain on each route's own inputs (the plain
      version on the host CPU); 8 sampled logs of each against the native
      oracle.
+  Hybrid backend (the native pool and the group engine on one row queue):
+ 11. the port's CLI ``--backend hybrid`` (in-process) with
+     LZANI_TPU_HYBRID_GREEDY=1 on phase 4's viral file: TSV and ids
+     byte-equal to phase 5's native output, aln as a set; the warm-up
+     succeeded (warm_why None), no row failed over to the host, device
+     pairs > 0 and device + cpu pairs = 65,280, launches > 0 and equal to
+     the engine's count, no replay mismatches;
+ 12. the CLI's card check (libcuda) timed in a fresh process; then
+     ``--backend auto`` as a subprocess (its wall includes process
+     start) on the viral and on the bacterial file, the bacterial one
+     just after ``--backend native`` run the same way (the viral one is
+     held against phase 5): auto byte-equal to native, no warm-up failure
+     (an envelope or a cancel is policy) and no row failed over to the
+     host; prints the default policy's stats (warm-up started or not,
+     device pairs, duty latches) and both walls.
 Then the card's name and power limit, one JSON line of the kernels (time,
-plain time and bound of each, from this run), and the result line last.
+plain time and bound of each, from this run; the group kernel's entry
+also has the hybrid path's launches), and the result line last.
 Without a CUDA device the script exits 1 and prints no result.
 """
 
@@ -305,59 +323,168 @@ def sampled_oracle_check(dev, codes, params, rng):
     return checked, fallbacks
 
 
-def run_both_clis(td, tag, names, codes, extra, nthreads, kernel):
-    """The port's CLI with --backend cuda (in-process, `kernel`'s counter
-    set to 0 just before and read just after) and --backend native (a
-    subprocess) on one FASTA; their TSV and ids byte-equal, aln equal as a
-    set. Returns (matcher, launches, cuda wall, native wall, native
-    stderr, TSV rows, aln rows)."""
-    import numpy as np
+def cli_in_process(fa, out, backend, extra, nthreads, kernel):
+    """The port's CLI (``cli.run``, in this process) with `backend`, and
+    `kernel`'s counter set to 0 just before and read just after. Returns
+    (matcher, launches, wall)."""
+    from lzani_tpu_torch import cli
 
-    from lzani_tpu_torch import cli, synth
-
-    fa = os.path.join(td, f"{tag}.fna")
-    synth.write_fasta(fa, names, codes)
-    out_t = os.path.join(td, f"{tag}_cuda.tsv")
-    out_n = os.path.join(td, f"{tag}_native.tsv")
-    argv = ["all2all", "--in-fasta", fa, "--out", out_t, "--out-alignment",
-            out_t + ".aln", "-t", nthreads, "-V", "1", *extra,
-            "--backend", "cuda"]
+    argv = ["all2all", "--in-fasta", fa, "--out", out, "--out-alignment",
+            out + ".aln", "-t", nthreads, "-V", "1", *extra, "--backend",
+            backend]
     kernel.launches = 0
     t0 = time.perf_counter()
     rc, matcher = cli.run(argv)
-    t_cuda = time.perf_counter() - t0
+    wall = time.perf_counter() - t0
     launches = kernel.launches
     if rc != 0:
-        raise RuntimeError(f"port CLI --backend cuda exited {rc} ({tag})")
+        raise RuntimeError(f"port CLI --backend {backend} exited {rc} "
+                           f"({fa})")
+    return matcher, launches, wall
+
+
+def cli_subprocess(fa, out, backend, extra, nthreads):
+    """``python -m lzani_tpu_torch all2all ... -V 2 --backend <backend>``
+    as a subprocess, so that its wall includes process start. Returns
+    (wall, stderr)."""
     cmd = [sys.executable, "-m", "lzani_tpu_torch", "all2all", "--in-fasta",
-           fa, "--out", out_n, "--out-alignment", out_n + ".aln", "-t",
-           nthreads, "-V", "2", *extra, "--backend", "native"]
+           fa, "--out", out, "--out-alignment", out + ".aln", "-t",
+           nthreads, "-V", "2", *extra, "--backend", backend]
     t0 = time.perf_counter()
     res = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
                          timeout=900)
-    t_native = time.perf_counter() - t0
+    wall = time.perf_counter() - t0
     if res.returncode != 0:
-        raise RuntimeError(f"port CLI --backend native exited "
-                           f"{res.returncode} ({tag}): {res.stderr[-2000:]}")
+        raise RuntimeError(f"port CLI --backend {backend} exited "
+                           f"{res.returncode} ({fa}): {res.stderr[-2000:]}")
+    return wall, res.stderr
+
+
+def same_outputs(tag, out_a, out_b):
+    """TSV and ids byte-equal, aln equal as a set, every TSV value
+    finite. Returns (TSV rows, aln rows)."""
+    import numpy as np
 
     def read(p):
         with open(p, "rb") as fh:
             return fh.read()
 
     for suffix in (".tsv", ".ids.tsv"):
-        if read(out_t[:-4] + suffix) != read(out_n[:-4] + suffix):
+        if read(out_a[:-4] + suffix) != read(out_b[:-4] + suffix):
             raise AssertionError(f"{tag}: {suffix} differs from --backend "
                                  f"native")
-    la = read(out_t + ".aln").splitlines()
-    lb = read(out_n + ".aln").splitlines()
+    la = read(out_a + ".aln").splitlines()
+    lb = read(out_b + ".aln").splitlines()
     if la[0] != lb[0] or sorted(la[1:]) != sorted(lb[1:]):
         raise AssertionError(f"{tag}: aln rows differ from --backend native")
-    rows = [ln.split(b"\t") for ln in read(out_t).splitlines()[1:]]
+    rows = [ln.split(b"\t") for ln in read(out_a).splitlines()[1:]]
     vals = np.array([[float(x) for x in r[4:]] for r in rows])
     if len(rows) == 0 or not np.isfinite(vals).all():
         raise AssertionError(f"{tag}: TSV empty or not finite")
-    return (matcher, launches, t_cuda, t_native, res.stderr, len(rows),
-            len(la) - 1)
+    return len(rows), len(la) - 1
+
+
+def run_both_clis(td, tag, names, codes, extra, nthreads, kernel):
+    """The port's CLI with --backend cuda (in-process, `kernel`'s counter
+    set to 0 just before and read just after) and --backend native (a
+    subprocess) on one FASTA; their TSV and ids byte-equal, aln equal as a
+    set. Returns (matcher, launches, cuda wall, native wall, native
+    stderr, TSV rows, aln rows)."""
+    from lzani_tpu_torch import synth
+
+    fa = os.path.join(td, f"{tag}.fna")
+    synth.write_fasta(fa, names, codes)
+    out_t = os.path.join(td, f"{tag}_cuda.tsv")
+    out_n = os.path.join(td, f"{tag}_native.tsv")
+    matcher, launches, t_cuda = cli_in_process(fa, out_t, "cuda", extra,
+                                               nthreads, kernel)
+    t_native, nat_err = cli_subprocess(fa, out_n, "native", extra, nthreads)
+    n_rows, n_aln = same_outputs(tag, out_t, out_n)
+    return matcher, launches, t_cuda, t_native, nat_err, n_rows, n_aln
+
+
+def check_hybrid(td, tag, extra, nthreads, kernel, n_pairs):
+    """Phase 11: --backend hybrid with LZANI_TPU_HYBRID_GREEDY=1 (the
+    warm-up starts at once and no claim gate holds the device back),
+    in-process, `kernel`'s counter set to 0 just before and read just
+    after; outputs equal to the native run of the same FASTA. Returns
+    (matcher, launches, wall, TSV rows, aln rows)."""
+    fa = os.path.join(td, f"{tag}.fna")
+    out = os.path.join(td, f"{tag}_hybrid.tsv")
+    os.environ["LZANI_TPU_HYBRID_GREEDY"] = "1"
+    try:
+        m, launches, wall = cli_in_process(fa, out, "hybrid", extra,
+                                           nthreads, kernel)
+    finally:
+        del os.environ["LZANI_TPU_HYBRID_GREEDY"]
+    n_rows, n_aln = same_outputs(f"{tag} hybrid", out,
+                                 os.path.join(td, f"{tag}_native.tsv"))
+    st = m.engine_stats
+    if st["warm_why"] is not None or st["failed_rows"]:
+        raise AssertionError(f"hybrid device side: warm_why "
+                             f"{st['warm_why']!r}, failed rows "
+                             f"{st['failed_rows']}")
+    if st["device_pairs"] <= 0 or (st["device_pairs"] + st["cpu_pairs"]
+                                   != n_pairs):
+        raise AssertionError(f"hybrid device pairs {st['device_pairs']} + "
+                             f"cpu pairs {st['cpu_pairs']}: not a partition "
+                             f"of {n_pairs} with device pairs > 0")
+    if launches <= 0 or st["launches"] != launches:
+        raise AssertionError(f"hybrid path launched the kernel {launches} "
+                             f"times (engine counted {st['launches']})")
+    if st["replay_mismatches"]:
+        raise AssertionError(f"hybrid replay mismatches "
+                             f"{st['replay_mismatches']}")
+    return m, launches, wall, n_rows, n_aln
+
+
+def check_auto(td, tag, extra, nthreads, rerun_native):
+    """Phase 12: ``--backend auto`` as a subprocess CLI (process start in
+    its wall), with `rerun_native` just after ``--backend native`` run the
+    same way (a paired reading), else held against the earlier phase's
+    native run of the same FASTA; auto's outputs equal to native's, its
+    engine line says the hybrid ran, no warm-up failed (warm_why None, an
+    envelope or a cancel) and no row failed over to the host. Returns
+    (auto wall, the paired native wall or None, engine stats, stderr)."""
+    from lzani_tpu_torch.utils.runinfo import engine_stats
+
+    fa = os.path.join(td, f"{tag}.fna")
+    out_n = os.path.join(td, f"{tag}_native.tsv")
+    out = os.path.join(td, f"{tag}_auto.tsv")
+    t_native = None
+    if rerun_native:
+        out_n = os.path.join(td, f"{tag}_native2.tsv")
+        t_native, _ = cli_subprocess(fa, out_n, "native", extra, nthreads)
+    wall, err = cli_subprocess(fa, out, "auto", extra, nthreads)
+    same_outputs(f"{tag} auto", out, out_n)
+    st = engine_stats(err)
+    if st is None or "warm_started" not in st:
+        raise AssertionError(f"{tag}: --backend auto did not run the hybrid "
+                             f"(engine line {st})")
+    why = st["warm_why"]
+    if st["failed_rows"] or (why is not None and not why.startswith(
+            ("envelope:", "cancelled"))):
+        raise AssertionError(f"{tag} auto: warm_why {why!r}, failed rows "
+                             f"{st['failed_rows']}")
+    return wall, t_native, st, err
+
+
+def probe_ms():
+    """The CLI's card check (``utils.cudadev.cuda_device_count``: libcuda's
+    cuInit and cuDeviceGetCount) in a fresh process: (devices, ms of the
+    first call, ms of the second)."""
+    code = ("import time\n"
+            "from lzani_tpu_torch.utils.cudadev import cuda_device_count\n"
+            "t0 = time.perf_counter(); n = cuda_device_count()\n"
+            "t1 = time.perf_counter(); cuda_device_count()\n"
+            "t2 = time.perf_counter()\n"
+            "print(n, (t1 - t0) * 1e3, (t2 - t1) * 1e3)\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    if res.returncode != 0:
+        raise RuntimeError(f"card check failed: {res.stderr[-2000:]}")
+    n, first, second = res.stdout.split()
+    return int(n), float(first), float(second)
 
 
 def main() -> int:
@@ -510,19 +637,54 @@ def main() -> int:
                f"{peak / 2**30:.2f} GiB; phases: {phase_times(m.times)}; "
                f"native phases: {cli_timings(nat_err)} [{smi}]")
 
-    # ---- per-reference routes ------------------------------------------
-    rr = check_ref_routes(dev, names, codes, params, parse_events,
-                          parse_events_plain)
-    for key, what in (("batch", "CudaRefIndex.parse_events_batch"),
-                      ("range", "CudaAll2All.dispatch_range")):
-        r = rr[key]
-        say(10, f"{what} (G=1, B={r['B']}, LqP={r['LqP']}): launches "
-                f"{r['launches']}, kernel == plain on {r['pairs']} pairs, "
-                f"{r['records']} records; {r['oracle']} sampled logs equal "
-                f"the oracle; kernel {r['ms']:.3f} ms, plain "
-                f"{r['plain_ms']:.1f} ms (host CPU), bound "
-                f"{r['bound_ms']:.4f} ms "
-                f"({r['bound_by']}) [{smi}]")
+        # ---- per-reference routes --------------------------------------
+        rr = check_ref_routes(dev, names, codes, params, parse_events,
+                              parse_events_plain)
+        for key, what in (("batch", "CudaRefIndex.parse_events_batch"),
+                          ("range", "CudaAll2All.dispatch_range")):
+            r = rr[key]
+            say(10, f"{what} (G=1, B={r['B']}, LqP={r['LqP']}): launches "
+                    f"{r['launches']}, kernel == plain on {r['pairs']} "
+                    f"pairs, {r['records']} records; {r['oracle']} sampled "
+                    f"logs equal the oracle; kernel {r['ms']:.3f} ms, plain "
+                    f"{r['plain_ms']:.1f} ms (host CPU), bound "
+                    f"{r['bound_ms']:.4f} ms ({r['bound_by']}) [{smi}]")
+
+        # ---- hybrid path (the default backend) -----------------------
+        hm, h_launches, t_hyb, n_rows, n_aln = check_hybrid(
+            td, "viral", [], nthreads, parse_events, n_pairs)
+        hs = hm.engine_stats
+        say(11, f"port CLI --backend hybrid (LZANI_TPU_HYBRID_GREEDY=1): "
+                f"{t_hyb:.2f} s, {n_pairs / t_hyb:.1f} pairs/s against native "
+                f"{t_native:.2f} s, -t {nthreads}; TSV ({n_rows} rows) and ids"
+                f" byte-equal, aln ({n_aln} rows) equal as a set; launches "
+                f"{h_launches} (the warm-up's dummy group included), device "
+                f"pairs {hs['device_pairs']} + cpu pairs {hs['cpu_pairs']} = "
+                f"{n_pairs}, warm_why None, failed rows 0, replay mismatches "
+                f"0; engine {json.dumps(hs)}; phases: {phase_times(hm.times)}"
+                f" [{smi}]")
+        n_dev, first_ms, second_ms = probe_ms()
+        if n_dev < 1:
+            raise AssertionError("libcuda reports no device")
+        say(12, f"the CLI's card check (libcuda cuInit + cuDeviceGetCount, "
+                f"a fresh process): {n_dev} device(s), first call "
+                f"{first_ms:.2f} ms, second {second_ms:.4f} ms [{smi}]")
+        # the bacterial native run is a few seconds: rerun it beside auto
+        for tag, extra, t_nat, rerun in (
+                ("viral", [], t_native, False),
+                ("bacterial", bact_flags, tb_native, True)):
+            t_auto, t_nat2, auto_st, err = check_auto(td, tag, extra,
+                                                      nthreads, rerun)
+            paired = (f"{t_nat2:.2f} s just before it (and " if rerun
+                      else "(")
+            say(12, f"{tag} CLI --backend auto (subprocess, process start "
+                    f"included): {t_auto:.2f} s against --backend native "
+                    f"{paired}{t_nat:.2f} s in an earlier phase), -t "
+                    f"{nthreads}; TSV and ids "
+                    f"byte-equal, aln equal as a set; hybrid stats "
+                    f"{json.dumps(auto_st)}; "
+                    f"phases: {cli_timings(err)} [{smi}]")
+
     if any(mod == "jax" or mod.startswith(("jax.", "lzani_tpu."))
            or mod == "lzani_tpu" for mod in sys.modules):
         raise AssertionError("jax or the JAX package was imported")
@@ -545,7 +707,8 @@ def main() -> int:
          "replaces": "lzani_tpu/ops/pallas_v7.py:56",
          "also_serves": ["lzani_tpu/ops/pallas_engine.py:2214",
                          "lzani_tpu/ops/pallas_v5.py:56"],
-         "launches": launches, "max_abs_err": k["max_abs_err"],
+         "launches": launches, "hybrid_launches": h_launches,
+         "max_abs_err": k["max_abs_err"],
          "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
          "bound_by": k["bound_by"], "library_ms": None},
         route("parse_events_batch", "lzani_tpu/ops/pallas_engine.py:1353",

@@ -8,7 +8,8 @@ replaces the device engine: plain PyTorch tensor prep on an explicit
 ``torch.device`` and hand-written CUDA event-log parse kernels
 (``csrc/parse_events.cu``). It imports neither jax nor ``lzani_tpu``.
 
-Entry point: ``python -m lzani_tpu_torch all2all ... --backend cuda``.
+Entry point: ``python -m lzani_tpu_torch all2all ...`` (``--backend auto`` =
+``hybrid``; ``cuda``, ``native``).
 """
 
 __version__ = "0.1.0"

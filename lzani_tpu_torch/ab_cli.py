@@ -2,23 +2,31 @@
 
     python -m lzani_tpu_torch.ab_cli --tree OLD_DIR --tree NEW_DIR \\
         [--set viral|bacterial] [--n 256] [--seed 2024] \\
-        [--backend cuda] [--backend native]
+        [--backend auto] [--backend hybrid] [--backend cuda] \\
+        [--backend native]
 
 Writes one seeded synthetic FASTA (``synth.viral_set`` of `n` genomes, or
 ``synth.bacterial_set`` with ``--mal 20 --msl 11 --reg 80``), then, per
 backend, runs ``python -m lzani_tpu_torch all2all`` from each checkout in
 turns (A, B, B, A) as a subprocess with ``-V 2``. Each checkout first
 runs once per backend, untimed, on a two-genome file, so that what it
-builds at first use (the kernels, the native engine) is not timed.
-Prints one line per timed run: wall seconds, pairs/s and the CLI's own
-phase timings, beside the card's name and power limit; and fails when
-two checkouts' TSV or ids files differ. Host clocks vary between calls,
-so compare only within one call.
+builds at first use (the kernels, the native engine) is not timed (for
+``hybrid`` and ``auto`` that run is a ``cuda`` one: on two genomes the
+hybrid's warm-up never starts, so it would build nothing).
+Prints one line per timed run: wall seconds, pairs/s, the CLI's own
+phase timings and (cuda, hybrid, auto) its engine counters, beside the
+card's name and power limit; and fails when two runs' TSV or ids files
+differ, across checkouts and across backends. A checkout whose CLI has
+no hybrid backend (before the port had one, ``auto`` meant ``cuda``) is
+left out of the ``hybrid`` and ``auto`` turns. The default backends are
+all four. Host clocks vary between calls, so compare only within one
+call.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import subprocess
 import sys
@@ -26,7 +34,9 @@ import tempfile
 import time
 
 from . import synth
-from .utils.runinfo import card_name_and_power, cli_timings
+from .utils.runinfo import card_name_and_power, cli_timings, engine_stats
+
+HYBRID_BACKENDS = ("hybrid", "auto")
 
 
 def main(argv=None) -> int:
@@ -38,7 +48,6 @@ def main(argv=None) -> int:
     ap.add_argument("--backend", action="append")
     a = ap.parse_args(argv)
     trees = [os.path.abspath(t) for t in a.tree]
-    order = trees + trees[::-1]
     smi = card_name_and_power()
     if a.set == "viral":
         names, codes = synth.viral_set(seed=a.seed, n=a.n)
@@ -69,21 +78,36 @@ def main(argv=None) -> int:
                                    f"{res.returncode}: {res.stderr[-2000:]}")
             return wall, res
 
-        for backend in a.backend or ["cuda", "native"]:
-            for tree in trees:
-                cli(tree, backend, tiny, os.path.join(td, "tiny.tsv"))
-            outs = {}
-            for k, tree in enumerate(order):
+        def has_hybrid(tree):
+            res = subprocess.run(
+                [sys.executable, "-c", "from lzani_tpu_torch.cli import "
+                 "BACKENDS; print(' '.join(BACKENDS))"], cwd=tree,
+                capture_output=True, text=True, check=True)
+            return "hybrid" in res.stdout.split()
+
+        hybrid_trees = [t for t in trees if has_hybrid(t)]
+        want = None
+        for backend in a.backend or ["auto", "hybrid", "cuda", "native"]:
+            these = hybrid_trees if backend in HYBRID_BACKENDS else trees
+            for tree in these:
+                cli(tree, "cuda" if backend in HYBRID_BACKENDS else backend,
+                    tiny, os.path.join(td, "tiny.tsv"))
+            for k, tree in enumerate(these + these[::-1]):
                 out = os.path.join(td, f"{backend}_{k}.tsv")
                 wall, res = cli(tree, backend, fa, out)
                 with open(out, "rb") as f1, \
                         open(out[:-4] + ".ids.tsv", "rb") as f2:
                     got = f1.read() + f2.read()
-                if outs.setdefault(backend, got) != got:
+                if want is None:
+                    want = got
+                elif got != want:
                     raise AssertionError(f"{tree} {backend}: output differs")
+                st = engine_stats(res.stderr)
                 print(f"{a.set} {backend} {tree}: {wall:.2f} s, "
                       f"{n_pairs / wall:.1f} pairs/s, -t {nthreads}; "
-                      f"{cli_timings(res.stderr)} [{smi}]", flush=True)
+                      f"{cli_timings(res.stderr)}"
+                      f"{'; engine ' + json.dumps(st) if st else ''} "
+                      f"[{smi}]", flush=True)
     return 0
 
 

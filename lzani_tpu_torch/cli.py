@@ -1,10 +1,12 @@
 """Command-line interface of the port, flag-compatible with the reference
 lz-ani (lz-ani.cpp:105-336): the port's own copy of ``lzani_tpu/cli.py``
-with ``--backend native|cuda|auto`` (auto = cuda). ``cuda`` without a CUDA
-device exits 1; it never runs on the CPU.
+with ``--backend native|cuda|hybrid|auto`` (auto = hybrid, as in the JAX
+package). ``cuda`` and ``hybrid`` without a CUDA device exit 1; they never
+run on the CPU in the card's place. The CLI checks for the card through
+libcuda, without torch (``utils.cudadev``).
 
     python -m lzani_tpu_torch all2all --in-fasta x.fna --out x.tsv \\
-        [--out-alignment x.aln.tsv] [-t N] [--backend cuda]
+        [--out-alignment x.aln.tsv] [-t N] [--backend hybrid]
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ from . import VERSION_STRING, __version__
 from .matcher import Matcher
 from .params import ParamError, Params
 
-BACKENDS = ("native", "cuda", "auto")
+BACKENDS = ("native", "cuda", "hybrid", "auto")
 
 USAGE = """\
 {info}
@@ -52,7 +54,9 @@ Options - LZ-parsing-related:
 Options - other:
   -t, --threads <int>            - no of threads; 0 means auto-detect (default: 0)
   -V, --verbose <int>            - verbosity level (default: 1)
-      --backend <name>           - compute backend: native | cuda | auto (default: auto = cuda)
+      --backend <name>           - compute backend: native | cuda | hybrid | auto
+                                   (default: auto = hybrid: the native pool and
+                                   the CUDA engine share one row queue)
 """
 
 
@@ -68,7 +72,7 @@ def parse_args(argv: list[str]) -> Params | None:
         print(f"Unknown mode: {argv[0]}", file=sys.stderr)
         raise SystemExit(1)
 
-    p = Params(backend="cuda")
+    p = Params(backend="hybrid")
     i = 1
 
     while i < len(argv):
@@ -166,8 +170,8 @@ def parse_args(argv: list[str]) -> Params | None:
                     print(f"Unknown backend: {argv[i + 1]} (choose from "
                           f"{', '.join(BACKENDS)})", file=sys.stderr)
                     raise SystemExit(1)
-                # auto means cuda
-                p.backend = "cuda" if argv[i + 1] == "auto" else argv[i + 1]
+                # auto means hybrid
+                p.backend = "hybrid" if argv[i + 1] == "auto" else argv[i + 1]
                 i += 2
             else:
                 print(f"Unknown parameter: {a}", file=sys.stderr)
@@ -194,17 +198,20 @@ def _parse_bool(flag: str, val: str) -> bool:
 
 def run(argv: list[str], device=None):
     """Parse `argv` and run it: (exit code, the Matcher or None).
-    `device` None means the current CUDA device for ``--backend cuda``."""
+    `device` None means the current CUDA device for ``--backend cuda`` and
+    ``hybrid``."""
     params = parse_args(argv)
     if params is None:
         return 0, None
-    if params.backend == "cuda" and device is None:
-        import torch    # --backend native never loads torch
+    if params.backend != "native" and device is None:
+        # libcuda, not torch: the hybrid imports torch only once its
+        # warm-up starts
+        from .utils import cudadev
 
-        if not torch.cuda.is_available():
-            print("lz-ani-torch: --backend cuda needs a CUDA device and none "
-                  "is available (use --backend native to run on the CPU)",
-                  file=sys.stderr)
+        if cudadev.cuda_device_count() == 0:
+            print(f"lz-ani-torch: --backend {params.backend} needs a CUDA "
+                  f"device and none is available (use --backend native to "
+                  f"run on the CPU)", file=sys.stderr)
             return 1, None
     m = Matcher(params, device=device)
     return (0 if m.run_all2all() else 1), m

@@ -3,10 +3,12 @@ match -> store.
 
 The port's own copy of ``lzani_tpu/matcher.py`` (the phase sequence of
 the reference's ``CLZMatcher::run_all2all``, lz_matcher.cpp:582-617)
-with two backends: ``native`` (the C++ host engine) and ``cuda`` (the
-CUDA device engine, ``ops/cuda_engine.all2all_cuda``); ``auto`` means
-``cuda``. The JAX package's ``pallas``, ``hybrid`` and ``jax`` backends
-and its multi-host block are not part of the port.
+with three backends: ``native`` (the C++ host engine), ``cuda`` (the
+CUDA device engine, ``ops/cuda_engine.all2all_cuda``) and ``hybrid``
+(the native pool and the CUDA engine on one shared row queue,
+``ops/hybrid.all2all_hybrid``); ``auto`` means ``hybrid``, as in the JAX
+package. Its ``pallas`` and ``jax`` backends and its multi-host block
+are not part of the port.
 """
 
 from __future__ import annotations
@@ -27,13 +29,15 @@ from .params import Params
 
 
 class Matcher:
-    """One all-vs-all run. After a cuda run, ``engine_stats`` holds the
-    engine's counters (see ``all2all_cuda``)."""
+    """One all-vs-all run. After a cuda or hybrid run, ``engine_stats``
+    holds the engine's counters (see ``all2all_cuda`` and
+    ``all2all_hybrid``)."""
 
     def __init__(self, params: Params, device=None):
         self.params = params
-        #: engine device for ``cuda``; None = the current CUDA device. A
-        #: CPU device runs the kernels' plain versions (tests only).
+        #: engine device for ``cuda`` and ``hybrid``; None = the current
+        #: CUDA device. A CPU device runs the kernels' plain versions
+        #: (tests only).
         self.device = device
         self.store: SequenceStore | None = None
         self.filter: PairFilter | None = None
@@ -52,8 +56,9 @@ class Matcher:
         """For the cuda backend on a card: a started thread that creates
         the CUDA context and loads the kernels' and the native engine's
         libraries while the sequences load (no kernel is launched), or
-        None."""
-        if self.params.backend not in ("cuda", "auto"):
+        None. The hybrid backend's warm-up thread decides that itself,
+        so a run too short for the device never imports torch."""
+        if self.params.backend != "cuda":
             return None
         import torch
 
@@ -145,9 +150,21 @@ class Matcher:
         if self.filter is not None:
             csr = self.filter.indptr_ids(len(self.store))
 
-        if p.backend == "native":
+        backend = "hybrid" if p.backend == "auto" else p.backend
+        if backend == "native":
             triples = self._match_native(csr, region_path)
-        elif p.backend in ("cuda", "auto"):
+        elif backend == "hybrid":
+            # torch-free at import: the warm-up thread imports torch
+            from .ops.hybrid import all2all_hybrid
+
+            stats = {}
+            triples = all2all_hybrid(self.store.codes, p, filter_csr=csr,
+                                     region_path=region_path,
+                                     progress=self._make_progress_cb(),
+                                     device=self.device, stats=stats)
+            self.engine_stats = stats
+            self._log(f"lz-ani-torch engine: {json.dumps(stats)}", level=2)
+        elif backend == "cuda":
             from .ops.cuda_engine import all2all_cuda
 
             if self._device_setup is not None:

@@ -397,6 +397,17 @@ class CudaAll2All:
             return "group"
         return "big" if nr <= cls.MAX_BIG_SYMS else "native"
 
+    @classmethod
+    def big_only_reason(cls, LqP: int, mal: int) -> str | None:
+        """Why every row of a run takes the long-genome path, or None:
+        mal > 13 (no dense 4^mal join table) or a query bucket `LqP` above
+        the group path's MAX_Q."""
+        if mal > 13:
+            return f"min anchor length {mal} > 13 (no dense 4^mal join table)"
+        if LqP > cls.MAX_Q:
+            return f"query bucket {LqP} exceeds {cls.MAX_Q}"
+        return None
+
     def __init__(self, codes, params, devices=None, shape=None):
         """`shape`, when given, is ``query_shape(codes, mrd)`` already
         worked out by the caller."""
@@ -411,7 +422,7 @@ class CudaAll2All:
         nr_all = 2 * self.dszs.astype(np.int64) + cfg.mrd   # 2L + 3 mrd
         #: every row takes the long-genome path (the query bucket exceeds
         #: the group path's, or no dense 4^mal join table)
-        self.all_big = self.LqP > self.MAX_Q or cfg.mal > 13
+        self.all_big = self.big_only_reason(self.LqP, cfg.mal) is not None
         self.paths = [self.row_path(int(v), self.all_big) for v in nr_all]
         nrs = nr_all[[p == "group" for p in self.paths]]
         nr_ok = int(nrs.max()) if len(nrs) else 4096
@@ -682,9 +693,7 @@ def all2all_cuda(codes, params, filter_csr=None, progress=None,
     eng = (CudaAll2All(codes, params, devices=[device],
                        shape=query_shape(codes, cfg.mrd)) if n else None)
     if n and eng.all_big:
-        why = (f"min anchor length {cfg.mal} > 13 (no dense 4^mal join "
-               f"table)" if cfg.mal > 13 else
-               f"query bucket {eng.LqP} exceeds {CudaAll2All.MAX_Q}")
+        why = eng.big_only_reason(eng.LqP, cfg.mal)
         _warn(f"lz-ani-torch: {why}; every row takes the long-genome "
               f"kernel")
     rows = {"group": [], "big": [], "native": []}

@@ -65,7 +65,8 @@ class Params:
     verbosity_level: int = 1
 
     # Engine selection: "native" (C++ host engine), "cuda" (the CUDA
-    # device engine), or "auto" (= cuda).
+    # device engine), "hybrid" (both on one row queue), or "auto" (=
+    # hybrid).
     backend: str = "auto"
 
     def __post_init__(self) -> None:

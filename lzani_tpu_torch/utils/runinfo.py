@@ -1,6 +1,6 @@
 """What the port's measurement scripts print beside their numbers
 (``chip_smoke.py``, ``ab_cli.py``, ``dispatch_probe.py``): the card, the
-CLI's phase timings, and a parse launch's bound."""
+CLI's phase timings and engine counters, and a parse launch's bound."""
 
 from __future__ import annotations
 
@@ -32,6 +32,17 @@ def cli_timings(stderr: str) -> str:
     items = [ln.rsplit(" : ", 1) for ln in tail if " : " in ln]
     return ", ".join(f"{lab} {float(v.rstrip('s')):.2f} s"
                      for lab, v in items if lab)
+
+
+def engine_stats(stderr: str) -> dict | None:
+    """The engine counters that a ``-V 2`` cuda or hybrid run of the CLI
+    writes to stderr (its 'lz-ani-torch engine: {...}' line), or None."""
+    import json
+
+    for ln in stderr.splitlines():
+        if ln.startswith("lz-ani-torch engine: "):
+            return json.loads(ln.split(": ", 1)[1])
+    return None
 
 
 def launch_bound_ms(args, nev, dsz_pairs):

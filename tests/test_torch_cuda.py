@@ -381,3 +381,96 @@ def test_big_launch_counter(dev):
     torch.cuda.synchronize()
     assert parse_events_big.launches == n0 + 1
     assert parse_events.launches == g0
+
+
+def test_hybrid_on_card_matches_native(dev, monkeypatch):
+    """The hybrid backend on the card, its claim gates lifted: equal to
+    the native engine, the device side took rows, and every group launch
+    (the warm-up's dummy group included) is on the wrapper's counter."""
+    from lzani_tpu_torch.core import native_engine as tne
+    from lzani_tpu_torch.ops.hybrid import all2all_hybrid
+    from lzani_tpu_torch.params import Params as TParams
+
+    monkeypatch.setenv("LZANI_TPU_HYBRID_GREEDY", "1")
+    _, codes = synth.viral_set(seed=7, n=96)
+    codes.sort(key=len, reverse=True)
+    p = TParams()
+    n0 = parse_events.launches
+    st = {}
+    out = all2all_hybrid(codes, p, cpu_threads=1, stats=st)
+    assert np.array_equal(out, tne.all2all(codes, p))
+    assert st["warm_why"] is None and st["device_pairs"] > 0
+    assert st["device_pairs"] + st["cpu_pairs"] == 96 * 95
+    assert st["launches"] == parse_events.launches - n0 > 0
+    assert st["replay_mismatches"] == 0 and st["failed_rows"] == 0
+
+
+def test_hybrid_cli_drains_while_the_kernels_build(dev, tmp_path):
+    """A checkout with nothing built: the greedy hybrid's warm-up imports
+    torch and builds the kernels with nvcc while the native pool runs.
+    When the pool drains first the CLI still exits 0, with outputs equal
+    to the native backend's: the warm thread is parked and joined at
+    exit, never killed mid-build."""
+    import os
+    import shutil
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    shutil.copytree(os.path.join(root, "lzani_tpu_torch"),
+                    tmp_path / "lzani_tpu_torch",
+                    ignore=shutil.ignore_patterns("_build", "__pycache__"))
+    names, codes = synth.viral_set(seed=9, n=128)
+    fa = str(tmp_path / "in.fna")
+    synth.write_fasta(fa, names, codes)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    outs = {}
+    for backend, cwd in (("native", root), ("hybrid", str(tmp_path))):
+        out = str(tmp_path / f"{backend}.tsv")
+        res = subprocess.run(
+            [sys.executable, "-m", "lzani_tpu_torch", "all2all", "--in-fasta",
+             fa, "--out", out, "-t", "2", "-V", "2", "--backend", backend],
+            cwd=cwd, capture_output=True, text=True, timeout=900,
+            env=dict(env, LZANI_TPU_HYBRID_GREEDY="1"))
+        assert res.returncode == 0, res.stderr[-2000:]
+        with open(out, "rb") as f1, open(out[:-4] + ".ids.tsv", "rb") as f2:
+            outs[backend] = f1.read() + f2.read()
+        print(backend, [ln for ln in res.stderr.splitlines()
+                        if ln.startswith(("lz-ani-torch engine", "Total"))])
+    assert outs["hybrid"] == outs["native"]
+
+
+def test_hybrid_on_card_fails_after_a_warm_failure(dev, monkeypatch):
+    """On the card a warm-up that fails leaves the rows to the native pool
+    and then fails the run: no run asked to use the card succeeds
+    without it."""
+    import threading
+    import time
+
+    from lzani_tpu_torch.core import native_engine as tne
+    from lzani_tpu_torch.ops.hybrid import all2all_hybrid
+    from lzani_tpu_torch.params import Params as TParams
+
+    tried = threading.Event()
+
+    def dead(self, gidx, lo, device=None, qrows=None):
+        tried.set()
+        raise RuntimeError("injected: device unreachable")
+
+    real = tne.all2all
+
+    def held(codes, params, **kw):
+        if kw.get("ext_counter") is not None:
+            tried.wait(120.0)
+            time.sleep(0.2)
+        return real(codes, params, **kw)
+
+    monkeypatch.setenv("LZANI_TPU_HYBRID_GREEDY", "1")
+    monkeypatch.setattr(tce.CudaAll2All, "dispatch_group", dead)
+    monkeypatch.setattr(tne, "all2all", held)
+    _, codes = synth.viral_set(seed=7, n=24)
+    codes.sort(key=len, reverse=True)
+    st = {}
+    with pytest.raises(RuntimeError, match="the CUDA device failed"):
+        all2all_hybrid(codes, TParams(), cpu_threads=1, stats=st)
+    assert "injected" in st["warm_why"] and st["cpu_pairs"] == 24 * 23

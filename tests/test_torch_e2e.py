@@ -18,6 +18,7 @@ from lzani_tpu_torch.matcher import Matcher
 from lzani_tpu_torch.ops import cuda_engine as tce
 from lzani_tpu_torch.ops.finalize import Finalizer
 from lzani_tpu_torch.synth import mutate, write_fasta
+from lzani_tpu_torch.utils import cudadev
 
 CPU = torch.device("cpu")
 
@@ -179,11 +180,12 @@ def test_matcher_cuda_path_matches_native_cli(tmp_path):
     assert jcli.main(["all2all", "--in-fasta", fa, "--out", a,
                       "--out-alignment", a + ".aln", "-t", "2", "-V", "0",
                       "--backend", "native"]) == 0
-    rc, m = tcli.run(["all2all", "--in-fasta", fa, "--out", b,
-                      "--out-alignment", b + ".aln", "-t", "2", "-V", "0"],
-                     device=CPU)
+    argv = ["all2all", "--in-fasta", fa, "--out", b, "--out-alignment",
+            b + ".aln", "-t", "2", "-V", "0"]
+    assert tcli.parse_args(argv).backend == "hybrid"    # auto means hybrid
+    rc, m = tcli.run(argv + ["--backend", "cuda"], device=CPU)
     assert rc == 0 and isinstance(m, Matcher)
-    assert m.params.backend == "cuda"            # auto means cuda
+    assert m.params.backend == "cuda"
     assert _read(a) == _read(b)
     assert _read(a[:-4] + ".ids.tsv") == _read(b[:-4] + ".ids.tsv")
     la = _read(a + ".aln").splitlines()
@@ -196,7 +198,7 @@ def test_matcher_cuda_path_matches_native_cli(tmp_path):
 
 def test_cli_cuda_without_gpu_exits_1(tmp_path, monkeypatch, capsys):
     fa = _fasta(tmp_path, 6)
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(cudadev, "cuda_device_count", lambda: 0)
     rc = tcli.main(["all2all", "--in-fasta", fa, "--out",
                     str(tmp_path / "o.tsv"), "--backend", "cuda"])
     assert rc == 1

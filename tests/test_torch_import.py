@@ -13,7 +13,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CODE = """
 import sys
 import lzani_tpu_torch, lzani_tpu_torch.ops.cuda_engine, lzani_tpu_torch.cli
-import lzani_tpu_torch.matcher, lzani_tpu_torch.synth
+import lzani_tpu_torch.matcher, lzani_tpu_torch.synth, lzani_tpu_torch.ops.hybrid
 bad = sorted(m for m in sys.modules
              if m == 'jax' or m.startswith(('jax.', 'jaxlib', 'lzani_tpu.ops')))
 assert not bad, bad
