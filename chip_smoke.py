@@ -68,9 +68,24 @@ non-zero):
      (an envelope or a cancel is policy) and no row failed over to the
      host; prints the default policy's stats (warm-up started or not,
      device pairs, duty latches) and both walls.
+  Several device entries and several processes:
+ 13. ``all2all_cuda(devices=[cuda:0, cuda:0])`` in-process on the first
+     96 viral genomes (units round-robin over two entries on the one
+     card), the kernel's counter set to 0 just before and read just
+     after: triples equal to the native engine's, both entries ran units,
+     launches > 0 and equal to the engine's count, no replay mismatches;
+ 14. the port's CLI as a two-process launch on the one card (the JAX
+     package's JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES /
+     JAX_PROCESS_ID, gloo on 127.0.0.1, ``-t 4`` each) on phase 4's viral
+     file, first ``--backend cuda``, then ``--backend auto``: process 0's
+     TSV and ids byte-equal to phase 5's native output, aln as a set;
+     process 1 writes no file; each process owns its stride share; under
+     cuda each process launched the kernel (its engine's count). Prints
+     each process's wall, rows, pairs and launches.
 Then the card's name and power limit, one JSON line of the kernels (time,
 plain time and bound of each, from this run; the group kernel's entry
-also has the hybrid path's launches), and the result line last.
+also has the hybrid, round-robin and two-process paths' launches), and
+the result line last.
 Without a CUDA device the script exits 1 and prints no result.
 """
 
@@ -78,6 +93,8 @@ from __future__ import annotations
 
 import json
 import os
+import re
+import socket
 import subprocess
 import sys
 import tempfile
@@ -88,10 +105,13 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 N_GENOMES = 256
 SEED = 2024
 N_SAMPLED = 200      # pairs checked against the oracle in phase 6
+T_START = time.perf_counter()
 
 
 def say(phase, msg):
-    print(f"[{phase}] {msg}", flush=True)
+    """One phase's line, with the seconds since the script started."""
+    print(f"[{phase} +{time.perf_counter() - T_START:.1f} s] {msg}",
+          flush=True)
 
 
 def phase_times(marks):
@@ -469,6 +489,106 @@ def check_auto(td, tag, extra, nthreads, rerun_native):
     return wall, t_native, st, err
 
 
+def check_round_robin(dev, codes, params, kernel):
+    """Phase 13: ``all2all_cuda`` over two device entries on the one card
+    on `codes`, `kernel`'s counter set to 0 just before and read just
+    after; triples equal to the native engine's. Returns (stats,
+    launches, wall, native wall)."""
+    import copy
+
+    import numpy as np
+
+    from lzani_tpu_torch.core import native_engine as ne
+    from lzani_tpu_torch.ops.cuda_engine import all2all_cuda
+
+    p = copy.copy(params)
+    p.adjust_threads()
+    st = {}
+    kernel.launches = 0
+    t0 = time.perf_counter()
+    got = all2all_cuda(codes, p, devices=[dev, dev], stats=st)
+    wall = time.perf_counter() - t0
+    launches = kernel.launches
+    t0 = time.perf_counter()
+    want = ne.all2all(codes, p)
+    t_native = time.perf_counter() - t0
+    if not np.array_equal(got, want):
+        bad = np.argwhere((got != want).any(axis=-1))[:5].tolist()
+        raise AssertionError(f"round-robin triples differ from native at "
+                             f"(r, q-slot) {bad}")
+    if len(st["device_units"]) != 2 or min(st["device_units"]) <= 0:
+        raise AssertionError(f"device entries ran units {st['device_units']}")
+    if launches <= 0 or st["launches"] != launches:
+        raise AssertionError(f"round-robin path launched the kernel "
+                             f"{launches} times (engine counted "
+                             f"{st['launches']})")
+    if st["replay_mismatches"] or st["native_rows"]:
+        raise AssertionError(f"replay mismatches {st['replay_mismatches']}, "
+                             f"native rows {st['native_rows']}")
+    return st, launches, wall, t_native
+
+
+def two_process_cli(td, tag, backend, nthreads):
+    """Phase 14: ``python -m lzani_tpu_torch all2all ... -V 2 --backend
+    <backend>`` as a two-process launch on this host's card, gloo on
+    127.0.0.1; process 0's outputs equal to the native run of the same
+    FASTA, process 1 writes no file. Returns [(wall, owned rows, owned
+    pairs, engine stats, phase timings)] per process, each wall from the
+    process's start to its exit."""
+    from lzani_tpu_torch.utils.runinfo import cli_timings, engine_stats
+
+    fa = os.path.join(td, f"{tag}.fna")
+    d = os.path.join(td, f"{tag}_2p_{backend}")
+    os.makedirs(d)
+    outs = [os.path.join(d, f"p{pid}.tsv") for pid in range(2)]
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    procs = []
+
+    def wait(p, t0):
+        _, err = p.communicate(timeout=600)
+        return p.returncode, err, time.perf_counter() - t0
+
+    try:
+        for pid in range(2):
+            env = dict(os.environ, JAX_COORDINATOR_ADDRESS=f"127.0.0.1:{port}",
+                       JAX_NUM_PROCESSES="2", JAX_PROCESS_ID=str(pid))
+            cmd = [sys.executable, "-m", "lzani_tpu_torch", "all2all",
+                   "--in-fasta", fa, "--out", outs[pid], "--out-alignment",
+                   outs[pid] + ".aln", "-t", nthreads, "-V", "2",
+                   "--backend", backend]
+            procs.append((subprocess.Popen(
+                cmd, cwd=ROOT, env=env, stdout=subprocess.DEVNULL,
+                stderr=subprocess.PIPE, text=True), time.perf_counter()))
+        with ThreadPoolExecutor(2) as pool:
+            done = [f.result() for f in [pool.submit(wait, *pt)
+                                         for pt in procs]]
+    finally:
+        for p, _ in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    res = []
+    for pid, (rc, err, wall) in enumerate(done):
+        if rc != 0:
+            raise RuntimeError(f"two-process --backend {backend}: process "
+                               f"{pid} exited {rc}: {err[-2000:]}")
+        m = re.search(rf"multi-host: process {pid}/2 owns (\d+) reference "
+                      rf"rows \((\d+) pairs\)", err)
+        if m is None:
+            raise AssertionError(f"process {pid} logged no share")
+        res.append((wall, int(m.group(1)), int(m.group(2)),
+                    engine_stats(err), cli_timings(err)))
+    same_outputs(f"{tag} two processes --backend {backend}", outs[0],
+                 os.path.join(td, f"{tag}_native.tsv"))
+    left = sorted(os.listdir(d))
+    if left != ["p0.ids.tsv", "p0.tsv", "p0.tsv.aln"]:
+        raise AssertionError(f"two-process --backend {backend} left {left} "
+                             f"(process 1 must write nothing)")
+    return res
+
+
 def probe_ms():
     """The CLI's card check (``utils.cudadev.cuda_device_count``: libcuda's
     cuInit and cuDeviceGetCount) in a fresh process: (devices, ms of the
@@ -685,6 +805,35 @@ def main() -> int:
                     f"{json.dumps(auto_st)}; "
                     f"phases: {cli_timings(err)} [{smi}]")
 
+        # ---- several device entries, several processes -------------
+        t_mp0 = time.perf_counter()
+        rs, rr_launches, t_rr, t_rr_nat = check_round_robin(
+            dev, codes[:96], params, parse_events)
+        say(13, f"all2all_cuda(devices=[{dev}, {dev}]) on the first 96 "
+                f"viral genomes: {t_rr:.2f} s against native "
+                f"{t_rr_nat:.2f} s; triples equal; units per entry "
+                f"{rs['device_units']}, launches {rr_launches}, replay "
+                f"mismatches 0 [{smi}]")
+        mp_launches = {}
+        for backend in ("cuda", "auto"):
+            res = two_process_cli(td, "viral", backend, "4")
+            mp_launches[backend] = [r[3]["launches"] for r in res]
+            if backend == "cuda" and min(mp_launches[backend]) <= 0:
+                raise AssertionError(f"a process of the cuda launch ran no "
+                                     f"kernel: {mp_launches[backend]}")
+            say(14, f"two-process CLI --backend {backend} (one card, gloo "
+                    f"on 127.0.0.1, -t 4 each): " + "; ".join(
+                        f"process {pid} {w:.2f} s, {rows} rows, {pairs} "
+                        f"pairs, launches {st['launches']}"
+                        + ("" if backend == "cuda" else
+                           f", device pairs {st['device_pairs']}, warm_why "
+                           f"{st['warm_why']!r}") + f" (phases: {ph})"
+                        for pid, (w, rows, pairs, st, ph) in enumerate(res))
+                    + f"; process 0's TSV and ids byte-equal to native, aln "
+                    f"equal as a set, process 1 wrote nothing; native "
+                    f"single-process {t_native:.2f} s in phase 5 [{smi}]")
+        say(14, f"phases 13-14 took {time.perf_counter() - t_mp0:.1f} s")
+
     if any(mod == "jax" or mod.startswith(("jax.", "lzani_tpu."))
            or mod == "lzani_tpu" for mod in sys.modules):
         raise AssertionError("jax or the JAX package was imported")
@@ -700,6 +849,7 @@ def main() -> int:
                 "plain_on": r["plain_on"], "bound_ms": r["bound_ms"],
                 "bound_by": r["bound_by"], "library_ms": None}
 
+    say("end", "all phases passed")
     print(smi, flush=True)
     print(json.dumps({"kernels": [
         {"name": "parse_events", "route": "cuda",
@@ -708,6 +858,8 @@ def main() -> int:
          "also_serves": ["lzani_tpu/ops/pallas_engine.py:2214",
                          "lzani_tpu/ops/pallas_v5.py:56"],
          "launches": launches, "hybrid_launches": h_launches,
+         "round_robin_launches": rr_launches,
+         "two_process_launches": mp_launches,
          "max_abs_err": k["max_abs_err"],
          "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
          "bound_by": k["bound_by"], "library_ms": None},

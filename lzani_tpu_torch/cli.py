@@ -5,6 +5,12 @@ package). ``cuda`` and ``hybrid`` without a CUDA device exit 1; they never
 run on the CPU in the card's place. The CLI checks for the card through
 libcuda, without torch (``utils.cudadev``).
 
+A multi-process launch runs the same command in every process, with the
+JAX package's variables set: ``JAX_COORDINATOR_ADDRESS`` (host:port of
+process 0), ``JAX_NUM_PROCESSES`` and ``JAX_PROCESS_ID``. Each process
+computes its share of the reference rows on its own card, and process 0
+writes the outputs (``matcher.py``, ``parallel/distributed.py``).
+
     python -m lzani_tpu_torch all2all --in-fasta x.fna --out x.tsv \\
         [--out-alignment x.aln.tsv] [-t N] [--backend hybrid]
 """
@@ -57,6 +63,9 @@ Options - other:
       --backend <name>           - compute backend: native | cuda | hybrid | auto
                                    (default: auto = hybrid: the native pool and
                                    the CUDA engine share one row queue)
+Multi-process launch (every process runs the same command; one process per
+card; process 0 writes the outputs): set JAX_COORDINATOR_ADDRESS=<host:port>,
+JAX_NUM_PROCESSES=<n> and JAX_PROCESS_ID=<0..n-1> in each process's environment
 """
 
 

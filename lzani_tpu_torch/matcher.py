@@ -7,8 +7,14 @@ with three backends: ``native`` (the C++ host engine), ``cuda`` (the
 CUDA device engine, ``ops/cuda_engine.all2all_cuda``) and ``hybrid``
 (the native pool and the CUDA engine on one shared row queue,
 ``ops/hybrid.all2all_hybrid``); ``auto`` means ``hybrid``, as in the JAX
-package. Its ``pallas`` and ``jax`` backends and its multi-host block
-are not part of the port.
+package. Its ``pallas`` and ``jax`` backends are not part of the port.
+
+A multi-process launch (the JAX package's ``JAX_COORDINATOR_ADDRESS``,
+``JAX_NUM_PROCESSES`` and ``JAX_PROCESS_ID``, ``parallel.distributed``)
+runs the same phases in every process: each computes its stride share of
+the reference rows with the selected backend, on its own card
+(``cuda:(process id % cards)``), the triples and region records are
+gathered to process 0 over gloo, and process 0 alone writes the outputs.
 """
 
 from __future__ import annotations
@@ -44,6 +50,12 @@ class Matcher:
         self.times: list[tuple[float, str]] = []
         self.engine_stats: dict | None = None
         self._device_setup: threading.Thread | None = None
+        #: this process's place in a multi-process launch, and whether it
+        #: joined the launch's process group
+        self.process_id, self.num_processes = 0, 1
+        self._joined = False
+        #: processes of the launch that drive this process's card
+        self.card_share = 1
 
     def _log(self, msg: str, level: int = 1) -> None:
         if self.params.verbosity_level >= level:
@@ -51,6 +63,29 @@ class Matcher:
 
     def _mark(self, label: str) -> None:
         self.times.append((time.perf_counter(), label))
+
+    def _join_launch(self) -> None:
+        """In a multi-process launch (JAX_COORDINATOR_ADDRESS set): join
+        the process group and, unless the caller chose the device, take
+        card process_id % cards for ``cuda`` and ``hybrid`` (the
+        counterpart of the JAX package's ``jax.local_devices()[:1]``).
+        Without the variable nothing is imported: a native run loads no
+        torch."""
+        from .parallel import distributed
+
+        if not os.environ.get(distributed.ENV_ADDRESS):
+            return
+        self.process_id, self.num_processes = distributed.init_distributed()
+        self._joined = True
+        if self.num_processes == 1:
+            return
+        if self.device is None and self.params.backend != "native":
+            from .utils import cudadev
+
+            n_cards = cudadev.cuda_device_count()
+            if n_cards:
+                self.device = f"cuda:{self.process_id % n_cards}"
+        self.card_share = distributed.card_share(self.device)
 
     def _start_device(self):
         """For the cuda backend on a card: a started thread that creates
@@ -85,6 +120,19 @@ class Matcher:
         p = self.params
         p.adjust_threads()
         self._mark("")
+        self._join_launch()
+        if self.num_processes > 1:
+            self._mark("Joining the launch's processes")
+        try:
+            return self._run_phases()
+        finally:
+            if self._joined:
+                from .parallel import distributed
+
+                distributed.shutdown()
+
+    def _run_phases(self) -> bool:
+        p = self.params
         self._device_setup = self._start_device()
 
         self._log("Loading sequences")
@@ -150,16 +198,32 @@ class Matcher:
         if self.filter is not None:
             csr = self.filter.indptr_ids(len(self.store))
 
+        # a multi-process launch: this process's share of the rows
+        eng_csr, eng_region, slots = csr, region_path, None
+        if self.num_processes > 1:
+            from .parallel import distributed
+
+            n = len(self.store)
+            rows = distributed.partition_refs(n, self.num_processes,
+                                              self.process_id)
+            indptr, ids, slots = distributed.local_filter_csr(rows, n, csr)
+            eng_csr = (indptr, ids)
+            if region_path:
+                eng_region = region_path + f".h{self.process_id}"
+            self._log(f"multi-host: process {self.process_id}/"
+                      f"{self.num_processes} owns {len(rows)} reference rows "
+                      f"({len(ids)} pairs)")
+
         backend = "hybrid" if p.backend == "auto" else p.backend
         if backend == "native":
-            triples = self._match_native(csr, region_path)
+            triples = self._match_native(eng_csr, eng_region)
         elif backend == "hybrid":
             # torch-free at import: the warm-up thread imports torch
             from .ops.hybrid import all2all_hybrid
 
             stats = {}
-            triples = all2all_hybrid(self.store.codes, p, filter_csr=csr,
-                                     region_path=region_path,
+            triples = all2all_hybrid(self.store.codes, p, filter_csr=eng_csr,
+                                     region_path=eng_region,
                                      progress=self._make_progress_cb(),
                                      device=self.device, stats=stats)
             self.engine_stats = stats
@@ -170,16 +234,45 @@ class Matcher:
             if self._device_setup is not None:
                 self._device_setup.join()
             stats: dict = {}
-            triples = all2all_cuda(self.store.codes, p, filter_csr=csr,
-                                   region_path=region_path,
+            triples = all2all_cuda(self.store.codes, p, filter_csr=eng_csr,
+                                   region_path=eng_region,
                                    progress=self._make_progress_cb(),
                                    replay_threads=p.no_threads,
-                                   device=self.device, stats=stats)
+                                   device=self.device, stats=stats,
+                                   card_share=self.card_share)
             self.engine_stats = stats
             self._log(f"lz-ani-torch engine: {json.dumps(stats)}", level=2)
         else:
             raise ValueError(f"Unknown backend: {p.backend}")
+        if self.num_processes > 1:
+            triples = self._merge(triples, slots, csr, region_path,
+                                  eng_region)
         return triples, csr, region_path
+
+    def _merge(self, triples, slots, csr, region_path, eng_region):
+        """Gather every process's share to process 0 (``gather_merge``),
+        then leave the process group. Process 0 gets the whole result in
+        the single-process layout and writes the joined region records to
+        `region_path`; the other processes get None."""
+        from .parallel import distributed
+
+        blob = b""
+        if eng_region and os.path.exists(eng_region):
+            with open(eng_region, "rb") as fh:
+                blob = fh.read()
+            os.remove(eng_region)
+        n = len(self.store)
+        total = n * (n - 1) if csr is None else int(csr[0][-1])
+        flat, blob = distributed.gather_merge(slots, triples, total, blob)
+        distributed.shutdown()
+        self._log(f"multi-host: merged triples from {self.num_processes} "
+                  f"processes")
+        if flat is None:
+            return None
+        if region_path:
+            with open(region_path, "wb") as fh:
+                fh.write(blob)
+        return flat if csr is not None else flat.reshape(n, max(n - 1, 0), 3)
 
     def _match_native(self, csr, region_path):
         """The native engine's threaded all-vs-all, with the reference's
@@ -190,8 +283,7 @@ class Matcher:
         prog = mon = None
         if p.verbosity_level >= 2:
             n = len(self.store)
-            total_pairs = ((self.filter.total if self.filter else 0)
-                           or n * (n - 1))
+            total_pairs = n * (n - 1) if csr is None else len(csr[1])
             prog = np.zeros(2, dtype=np.int64)
             stop = threading.Event()
 
@@ -222,6 +314,11 @@ class Matcher:
     def _store_results(self, triples, csr, region_path) -> bool:
         p = self.params
         store = self.store
+        if self.process_id != 0:
+            # process 0 writes the outputs; region_path is its file
+            self._log("multi-host: outputs written by process 0; this "
+                      "process skips the store phase")
+            return True
         if p.output_type == "single_txt":
             if csr is None:
                 rm = ResultMatrix.from_dense(triples)

@@ -451,12 +451,14 @@ class CudaAll2All:
         qp_padded[:, :qp.shape[1]] = qp
         dszs_pad = np.full(n_pad, cfg.msl, np.int32)   # padding rows: no-op
         dszs_pad[:n] = self.dszs
-        self.Q = {d: torch.from_numpy(qp_padded).to(d) for d in self.devices}
-        self.DSZ = {d: torch.from_numpy(dszs_pad).to(d)
-                    for d in self.devices}
+        # one copy per distinct device: entries that repeat a device share
+        # its read-only query matrix
+        self.Q = {d: torch.from_numpy(qp_padded).to(d)
+                  for d in dict.fromkeys(self.devices)}
+        self.DSZ = {d: torch.from_numpy(dszs_pad).to(d) for d in self.Q}
 
     def device_for(self, k: int):
-        """Device owning work unit k (round-robin)."""
+        """Device of work unit k: entry k % len(devices) (round-robin)."""
         return self.devices[k % len(self.devices)]
 
     def build_group_index(self, r_list, device=None) -> GroupIndex:
@@ -533,20 +535,31 @@ class CudaAll2All:
 
     # ---- long-genome path ----------------------------------------------
 
-    def big_launch_shape(self, n_big: int, device=None):
+    def big_launch_shape(self, n_big: int, device=None, share: int = 1):
         """Set and return (G_big, B_big): references and queries per
         long-genome launch. The JAX package caps B_big at 4 to guard a TPU
         watchdog; here both come from memory: the most pairs whose buffers
-        fit a quarter of the card's free memory (two launches are in
-        flight), B_big a power of two <= B. Each pair is a warp of its
-        own, so a launch lasts about as long as its slowest pair, and
-        more pairs per launch cost little until the warps outnumber what
-        the SMs hold at once (the bacterial set's 48 pairs: one launch of
-        75.7-76.7 ms; dispatch_probe.py, NVIDIA H100 80GB HBM3, 700.00
-        W)."""
-        dev = torch.device(device or self.devices[0])
-        budget = (torch.cuda.mem_get_info(dev)[0] // 4 if dev.type == "cuda"
-                  else self.CPU_BIG_BUDGET)
+        fit a quarter of the card's free memory (each entry keeps two
+        launches in flight), B_big a power of two <= B. Each pair is a
+        warp of its own, so a launch lasts about as long as its slowest
+        pair, and more pairs per launch cost little until the warps
+        outnumber what the SMs hold at once (the bacterial set's 48 pairs:
+        one launch of 75.7-76.7 ms; dispatch_probe.py, NVIDIA H100 80GB
+        HBM3, 700.00 W).
+
+        Sized for `device`, or else for the tightest of the engine's
+        devices. A device's quarter is split among the entries that
+        repeat it and the `share` processes that drive it (each process
+        reads the free memory at its own start, so without the split two
+        processes on one card would each size for the whole of it)."""
+        budgets = []
+        for dev in dict.fromkeys([torch.device(device)] if device is not None
+                                 else self.devices):
+            free = (torch.cuda.mem_get_info(dev)[0] // 4
+                    if dev.type == "cuda" else self.CPU_BIG_BUDGET)
+            budgets.append(free // (max(1, share)
+                                    * max(1, self.devices.count(dev))))
+        budget = min(budgets)
         LqP = self.LqP
         # candidate planes + next_hit, and the event buffer
         per_pair = 12 * LqP + 32 * (self.EV_CAP_BIG + 1)
@@ -623,11 +636,19 @@ def _finalize_many(finalize, r, items):
 
 def all2all_cuda(codes, params, filter_csr=None, progress=None,
                  replay_threads: int = 0, region_path: str | None = None,
-                 device=None, stats: dict | None = None):
+                 device=None, stats: dict | None = None, devices=None,
+                 card_share: int = 1):
     """All-vs-all triples through the CUDA engine; layout matches
     ``native_engine.all2all`` (dense (n, n-1, 3), or (nnz, 3) aligned to
     the filter CSR). `device` defaults to the current CUDA device; a CPU
     device runs the kernels' plain versions (tests).
+
+    `devices`, in place of `device`, is a list of device entries: work
+    units go round-robin over the entries (``CudaAll2All.device_for``),
+    and each entry keeps two units in flight and one live reference
+    index. Entries may repeat a device (``["cpu", "cpu"]`` in the tests,
+    two entries on one card). `card_share` is the number of processes
+    that drive the same card (``big_launch_shape``).
 
     Rows are routed as the JAX package routes them (``row_path``): the
     group path, the long-genome path, or (composites above MAX_BIG_SYMS)
@@ -640,8 +661,9 @@ def all2all_cuda(codes, params, filter_csr=None, progress=None,
     whose log exceeded EV_CAP_BIG, and their (r, q)), native_rows and
     native_row_pairs (rows routed to the native engine), big_rows,
     G_big and B_big (references and queries per long-genome launch),
-    replay_mismatches (logs the replay rejected), dispatches, and
-    launches / big_launches (kernel launches of each path).
+    replay_mismatches (logs the replay rejected), dispatches,
+    launches / big_launches (kernel launches of each path) and
+    device_units (the units each device entry ran).
 
     Raises RuntimeError after the run when any kernel log failed the
     replay's cross-check: the kernel computed a wrong stream, and those
@@ -662,7 +684,8 @@ def all2all_cuda(codes, params, filter_csr=None, progress=None,
     st = dict(kernel_pairs=0, cap_fallbacks=0, big_pairs=0,
               big_cap_fallbacks=0, big_fallback_pairs=[], native_rows=0,
               native_row_pairs=0, big_rows=0, G_big=0, B_big=0,
-              replay_mismatches=0, dispatches=0, launches=0, big_launches=0)
+              replay_mismatches=0, dispatches=0, launches=0, big_launches=0,
+              device_units=[])
     if stats is not None:
         stats.update(st)
 
@@ -678,11 +701,17 @@ def all2all_cuda(codes, params, filter_csr=None, progress=None,
                 n * (n - 1) if filter_csr is None else len(filter_csr[1])))
         return out
 
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError("all2all_cuda: no CUDA device")
-        device = torch.device("cuda", torch.cuda.current_device())
-    device = torch.device(device)
+    if devices is None:
+        if device is None:
+            if not torch.cuda.is_available():
+                raise RuntimeError("all2all_cuda: no CUDA device")
+            device = torch.device("cuda", torch.cuda.current_device())
+        devices = [device]
+    elif device is not None or not devices:
+        raise ValueError("all2all_cuda: give `device` or a non-empty "
+                         "`devices`, not both")
+    devices = [torch.device(d) for d in devices]
+    st["device_units"] = [0] * len(devices)
 
     if filter_csr is None:
         out = np.zeros((n, max(n - 1, 0), 3), dtype=np.int32)
@@ -690,13 +719,14 @@ def all2all_cuda(codes, params, filter_csr=None, progress=None,
         indptr, ids = filter_csr
         out = np.zeros((len(ids), 3), dtype=np.int32)
 
-    eng = (CudaAll2All(codes, params, devices=[device],
+    eng = (CudaAll2All(codes, params, devices=devices,
                        shape=query_shape(codes, cfg.mrd)) if n else None)
     if n and eng.all_big:
         why = eng.big_only_reason(eng.LqP, cfg.mal)
         _warn(f"lz-ani-torch: {why}; every row takes the long-genome "
               f"kernel")
     rows = {"group": [], "big": [], "native": []}
+    idle_rows = 0   # rows with no pair to compute (another process's)
     for r in range(n):
         if filter_csr is None:
             wanted = {q: (r, q - 1 if q > r else q)
@@ -704,6 +734,9 @@ def all2all_cuda(codes, params, filter_csr=None, progress=None,
         else:
             wanted = {int(q): int(indptr[r]) + k
                       for k, q in enumerate(ids[indptr[r]:indptr[r + 1]])}
+        if not wanted:
+            idle_rows += 1
+            continue
         if eng.paths[r] == "native":
             _warn(f"lz-ani-torch: reference {r} ({int(eng.dszs[r]) - cfg.mrd}"
                   f" bp): composite of {2 * int(eng.dszs[r]) + cfg.mrd} "
@@ -721,7 +754,8 @@ def all2all_cuda(codes, params, filter_csr=None, progress=None,
         groups.append(("group", [r for r, _ in chunk] + [-1] * pad,
                        [w for _, w in chunk] + [{}] * pad))
     if rows["big"]:
-        G_big, B_big = eng.big_launch_shape(len(rows["big"]), device)
+        G_big, B_big = eng.big_launch_shape(len(rows["big"]),
+                                            share=card_share)
         st.update(G_big=G_big, B_big=B_big)
         _warn(f"lz-ani-torch: long-genome path: {len(rows['big'])} rows, "
               f"{G_big} references x {B_big} queries per launch, event cap "
@@ -756,15 +790,16 @@ def all2all_cuda(codes, params, filter_csr=None, progress=None,
                 units.append((gi, (idx, posof), subs))
 
     # the Sequences% counter: a reference row counts when its last unit
-    # drains (pallas_engine.py:1575-1580); rows without units count now
+    # drains (pallas_engine.py:1575-1580); rows without units count now,
+    # those with no pair at all too
     group_rem = [0] * len(groups)
     for gi, _, _ in units:
         group_rem[gi] += 1
     group_nreal = [sum(r >= 0 for r in rl) for _, rl, _ in groups]
     total_pairs = (sum(len(s) for u in units for s in u[2])
                    + sum(len(w) for _, w in rows["native"]))
-    seqs_done = sum(group_nreal[gi] for gi in range(len(groups))
-                    if group_rem[gi] == 0)
+    seqs_done = idle_rows + sum(group_nreal[gi] for gi in range(len(groups))
+                                if group_rem[gi] == 0)
 
     nthreads = replay_threads or max(2, (os.cpu_count() or 2) - 1)
     rf = open(region_path, "wb") if region_path else None
@@ -818,30 +853,34 @@ def all2all_cuda(codes, params, filter_csr=None, progress=None,
                 if progress is not None:
                     progress(done_pairs, total_pairs, seqs_done, n)
 
-            # depth-2 pipeline: unit k+1 is queued on the device before
-            # unit k's logs are downloaded and handed to the replay pool
-            # (a group's units are consecutive: one index at a time)
+            # depth-2 pipeline per device entry: unit k + len(devices) is
+            # queued before unit k's logs are downloaded and handed to the
+            # replay pool. Units go round-robin over the entries, and each
+            # entry keeps one live index (a group's units are consecutive)
+            n_ent = len(devices)
             inflight = []
-            cur_gi, cur_idx = None, None
-            for unit in units:
+            live = {}    # entry -> (group, its index on the entry's device)
+            for k, unit in enumerate(units):
                 gi, lo, _ = unit
                 kind, r_list, _ = groups[gi]
-                if gi != cur_gi:
-                    cur_gi, cur_idx = gi, None   # free the previous index
-                    cur_idx = (eng.build_big_index(r_list, device)
+                e, dev = k % n_ent, eng.device_for(k)
+                if live.get(e, (None,))[0] != gi:
+                    live.pop(e, None)            # free the previous index
+                    live[e] = (gi, eng.build_big_index(r_list, dev)
                                if kind == "big"
-                               else eng.build_group_index(r_list, device))
+                               else eng.build_group_index(r_list, dev))
+                idx = live[e][1]
                 if kind == "big":
-                    handles = eng.dispatch_big(cur_idx, r_list, lo, device)
+                    handles = eng.dispatch_big(idx, r_list, lo, dev)
                 elif isinstance(lo, tuple):
                     handles = eng.dispatch_group(
-                        cur_idx, None, device,
-                        qrows=eng.gather_qrows(lo[0], device))
+                        idx, None, dev, qrows=eng.gather_qrows(lo[0], dev))
                 else:
-                    handles = eng.dispatch_group(cur_idx, lo, device)
+                    handles = eng.dispatch_group(idx, lo, dev)
                 st["dispatches"] += 1
+                st["device_units"][e] += 1
                 inflight.append((unit, handles))
-                if len(inflight) >= 2:
+                if len(inflight) >= 2 * n_ent:
                     drain(*inflight.pop(0))
             while inflight:
                 drain(*inflight.pop(0))

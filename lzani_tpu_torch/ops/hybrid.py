@@ -127,7 +127,7 @@ def _current_cuda_device() -> str:
 def all2all_hybrid(codes, params, filter_csr=None, progress=None,
                    region_path: str | None = None, device=None,
                    cpu_threads: int | None = None, replay_threads: int = 0,
-                   stats: dict | None = None):
+                   stats: dict | None = None, devices=None):
     """Heterogeneous all-vs-all: the native thread pool and the CUDA
     event-log engine pop reference rows from one shared two-ended queue.
     Layout of the result as ``native_engine.all2all``.
@@ -158,7 +158,10 @@ def all2all_hybrid(codes, params, filter_csr=None, progress=None,
 
     `device`: None for the current CUDA device (raises without a card),
     or a torch device or its name; ``"cpu"`` runs the plain versions.
-    cpu_threads=0 delegates to ``all2all_cuda``.
+    `devices`, in place of `device`, is a list of device entries (they
+    may repeat a device): claimed groups go round-robin over them, two
+    units in flight per entry, and the warm-up's dummy group runs on the
+    first. cpu_threads=0 delegates to ``all2all_cuda``.
 
     `stats`, when given, receives: device_pairs (pairs whose logs the
     device side downloaded), cpu_rows / cpu_pairs (the native pool's),
@@ -167,9 +170,13 @@ def all2all_hybrid(codes, params, filter_csr=None, progress=None,
     a cancel, an envelope, an error; None otherwise), t_unit_s (the
     drain-to-drain EMA), duty_latched, launches (kernel launches, the
     dummy group's included), cap_fallbacks, replay_mismatches,
-    native_rows (claimed rows off the group path) and failed_rows (rows
-    re-run on the host after a device failure).
+    native_rows (claimed rows off the group path), failed_rows (rows
+    re-run on the host after a device failure) and device_units (the
+    units each device entry ran).
     """
+    if devices is not None and (device is not None or not devices):
+        raise ValueError("all2all_hybrid: give `device` or a non-empty "
+                         "`devices`, not both")
     if cpu_threads is None:
         # the caller's -t; when unset, every core: the device side's
         # threads run at idle priority and take what the pool leaves
@@ -180,9 +187,9 @@ def all2all_hybrid(codes, params, filter_csr=None, progress=None,
         return all2all_cuda(codes, params, filter_csr=filter_csr,
                             progress=progress, replay_threads=replay_threads,
                             region_path=region_path, device=device,
-                            stats=stats)
-    if device is None:
-        device = _current_cuda_device()
+                            stats=stats, devices=devices)
+    if devices is None:
+        devices = [device if device is not None else _current_cuda_device()]
 
     n = len(codes)
     if filter_csr is None:
@@ -208,7 +215,7 @@ def all2all_hybrid(codes, params, filter_csr=None, progress=None,
     debug = bool(int(os.environ.get("LZANI_TPU_HYBRID_DEBUG", "0")))
     warm_min_s = float(os.environ.get("LZANI_TPU_WARM_MIN_S", "20"))
     GROUP = max(1, int(os.environ.get("LZANI_TPU_GROUP", "4")))
-    depth = 2   # units in flight on the one device
+    depth = 2 * len(devices)   # units in flight: two per device entry
 
     def _warn(msg):
         if verbosity >= 1:
@@ -225,6 +232,10 @@ def all2all_hybrid(codes, params, filter_csr=None, progress=None,
             return {q: (r, q - 1 if q > r else q) for q in range(n) if q != r}
         return {int(q): int(indptr[r]) + k
                 for k, q in enumerate(ids[indptr[r]:indptr[r + 1]])}
+
+    def has_pairs(r):
+        # a row of another process's share (multi-process) has none
+        return filter_csr is None or indptr[r + 1] > indptr[r]
 
     side_path = region_path + ".device" if region_path else None
     rf = open(side_path, "wb") if side_path else None
@@ -347,13 +358,14 @@ def all2all_hybrid(codes, params, filter_csr=None, progress=None,
                 if pdone > 0 and el > 0:
                     if (total_pairs - pdone) / (pdone / el) < 60.0:
                         _thread_idle_priority()
-            dev = torch.device(device)
-            _dbg(f"warm: device {dev}")
-            e = CudaAll2All(codes, params, devices=[dev], shape=shape)
+            devs = [torch.device(d) for d in devices]
+            _dbg(f"warm: devices {devs}")
+            e = CudaAll2All(codes, params, devices=devs, shape=shape)
             _dbg("warm: engine constructed")
             if warm_state.get("cancel"):
                 return _stop("cancelled-before-dispatch")
-            if dev.type == "cuda":
+            dev = devs[0]
+            if any(d.type == "cuda" for d in devs):
                 parse_kernel.load()      # nvcc at first use
                 if warm_state.get("cancel"):
                     return _stop("cancelled-after-build")
@@ -399,7 +411,8 @@ def all2all_hybrid(codes, params, filter_csr=None, progress=None,
             t_last_drain[0] = now
         report()
 
-    grp_pairs_est = max(1, GROUP * total_pairs // max(1, n))
+    grp_pairs_est = max(1, GROUP * total_pairs
+                        // max(1, sum(map(has_pairs, range(n)))))
 
     # ---- duty-cycle displacement controller --------------------------------
     # The device side's host work (index builds, downloads, replay)
@@ -480,13 +493,19 @@ def all2all_hybrid(codes, params, filter_csr=None, progress=None,
                 backlog = (len(inflight) + len(unit_q) + 1) * tg
                 if rem / cpu_rate < backlog:
                     return None
+        # GROUP rows with pairs; rows without any (another process's
+        # share) ride along and count as done
         got = ct.c_int64(0)
-        start = int(lib.lza_claim_tail(cptr, GROUP, ct.byref(got)))
-        if start < 0:
-            return None
-        return list(range(start, start + int(got.value)))
+        rows: list[int] = []
+        while (need := GROUP - sum(map(has_pairs, rows))) > 0:
+            start = int(lib.lza_claim_tail(cptr, need, ct.byref(got)))
+            if start < 0:
+                break
+            rows.extend(range(start, start + int(got.value)))
+        return rows or None
 
-    k_disp = 0
+    k_claim = 0     # claimed groups, for the round-robin over the entries
+    device_units = [0] * len(devices)
     done_claiming = False
     current = None  # unit popped but not yet in `inflight`
     warm_started = False
@@ -535,17 +554,24 @@ def all2all_hybrid(codes, params, filter_csr=None, progress=None,
                         if queue_rem() <= 0:
                             done_claiming = True
                         break
-                    on_dev = [r for r in rows if eng.paths[r] == "group"]
+                    idle = [r for r in rows if not has_pairs(r)]
+                    on_dev = [r for r in rows
+                              if has_pairs(r) and eng.paths[r] == "group"]
                     for r in rows:
-                        if eng.paths[r] != "group":
+                        if has_pairs(r) and eng.paths[r] != "group":
                             native_rows += 1
                             pending.append(pool.submit(host_row, r,
                                                        wanted_of(r)))
+                    if idle:
+                        with lock:
+                            dev_rows[0] += len(idle)
                     if not on_dev:
                         continue
                     r_list = on_dev + [-1] * (GROUP - len(on_dev))
-                    dev = eng.device_for(k_disp)
-                    gf = pool.submit(eng.build_group_index, r_list, dev)
+                    ent = k_claim % len(devices)
+                    k_claim += 1
+                    gf = pool.submit(eng.build_group_index, r_list,
+                                     eng.devices[ent])
                     wanteds = [wanted_of(r) if r >= 0 else {}
                                for r in r_list]
                     dev_claimed += sum(len(w) for w in wanteds)
@@ -557,7 +583,7 @@ def all2all_hybrid(codes, params, filter_csr=None, progress=None,
                             g_units.append((lo, subs))
                     urem = [len(g_units)]   # rows count at the last drain
                     for lo, subs in g_units:
-                        unit_q.append((r_list, lo, subs, gf, dev, urem,
+                        unit_q.append((r_list, lo, subs, gf, ent, urem,
                                        len(on_dev)))
                 if not unit_q and not inflight:
                     if done_claiming:
@@ -571,14 +597,14 @@ def all2all_hybrid(codes, params, filter_csr=None, progress=None,
                     continue
                 if unit_q:
                     current = unit_q.popleft()
-                    r_list, lo, subs, gf, dev, urem, nrows = current
+                    r_list, lo, subs, gf, ent, urem, nrows = current
                     idx = gf.result()
                     t_disp = time.perf_counter()
-                    handles = eng.dispatch_group(idx, lo, dev)
+                    handles = eng.dispatch_group(idx, lo, eng.devices[ent])
                     inflight.append((r_list, (subs, lo), handles, t_disp,
                                      urem, nrows))
                     current = None
-                    k_disp += 1
+                    device_units[ent] += 1
                 if len(inflight) >= depth or not unit_q:
                     if inflight:
                         u = inflight.popleft()
@@ -653,7 +679,8 @@ def all2all_hybrid(codes, params, filter_csr=None, progress=None,
         launches=(kernels.parse_events.launches - warm_state["launches0"]
                   if kernels is not None else 0),
         cap_fallbacks=cap_fallbacks, replay_mismatches=fin.replay_mismatches,
-        native_rows=native_rows, failed_rows=len(failed_rows))
+        native_rows=native_rows, failed_rows=len(failed_rows),
+        device_units=device_units)
     if stats is not None:
         stats.update(st)
     if fin.replay_mismatches:
@@ -664,7 +691,7 @@ def all2all_hybrid(codes, params, filter_csr=None, progress=None,
     why = warm_state["why"]
     warm_failed = why is not None and not why.startswith(("envelope:",
                                                           "cancelled"))
-    if _on_card(device) and (warm_failed or failed_rows):
+    if any(map(_on_card, devices)) and (warm_failed or failed_rows):
         raise RuntimeError(
             f"lz-ani-torch: the CUDA device failed during this hybrid run "
             f"(warm-up: {why if warm_failed else 'ok'}; rows re-run on the "

@@ -474,3 +474,21 @@ def test_hybrid_on_card_fails_after_a_warm_failure(dev, monkeypatch):
     with pytest.raises(RuntimeError, match="the CUDA device failed"):
         all2all_hybrid(codes, TParams(), cpu_threads=1, stats=st)
     assert "injected" in st["warm_why"] and st["cpu_pairs"] == 24 * 23
+
+
+def test_all2all_cuda_two_entries_on_one_card(dev):
+    """Units round-robin over two entries on the one card
+    (devices=[cuda:0, cuda:0]): triples equal to the native engine's on 48
+    viral genomes, both entries ran units and every launch is counted."""
+    from lzani_tpu_torch.core import native_engine as tne
+    from lzani_tpu_torch.params import Params as TParams
+
+    _, codes = synth.viral_set(seed=7, n=48)
+    p = TParams()
+    n0 = parse_events.launches
+    st = {}
+    out = tce.all2all_cuda(codes, p, devices=[dev, dev], stats=st)
+    assert np.array_equal(out, tne.all2all(codes, p))
+    assert len(st["device_units"]) == 2 and min(st["device_units"]) > 0
+    assert st["launches"] == parse_events.launches - n0 == st["dispatches"]
+    assert st["replay_mismatches"] == 0
