@@ -3,16 +3,17 @@
 
     python3 chip_smoke.py
 
-Three paths of the port are driven end to end through its CLI, each
-with its kernel's launch counter set to 0 just before and read just after:
-the cuda backend's group path, its long-genome path, and the hybrid
-backend (the default).
+Four paths of the port are driven end to end through its CLI, each
+with its kernels' launch counters set to 0 just before and read just
+after: the cuda backend's group path, its long-genome path, the hybrid
+backend (the default), and the automaton backend (``--backend jax``).
 Phases (each prints one line; any failure raises, so the exit code is
 non-zero):
   1. the card: torch's device name and nvidia-smi's name and power limit;
   2. build: the CUDA parse kernels (one nvcc build of parse_events.cu,
-     both C entries) and the port's native C++ engine (g++), from the
-     sources in this checkout, the two compilers started together;
+     both C entries), the fold kernel (one nvcc build of fold_stats.cu)
+     and the port's native C++ engine (g++), from the sources in this
+     checkout, the three compilers started together;
   Group path (default parameters, viral-sized genomes):
   3. kernel = plain: one whole group dispatch of the main path (G = 4
      references x B = 256 queries at the run's LrP/LqP buckets), the
@@ -82,6 +83,25 @@ non-zero):
      process 1 writes no file; each process owns its stride share; under
      cuda each process launched the kernel (its engine's count). Prints
      each process's wall, rows, pairs and launches.
+  Automaton backend (the parse kernel's logs folded on the card):
+ 15. the fold kernel against its plain version (on the host CPU) on the
+     64 logs of phase 10's ``parse_events_batch`` launch, with and
+     without factors: stats, status (0 for every pair with a log), factor
+     counts and factors equal, the stats equal to the native engine's;
+     then the main path's launch of reference row 0 (its 255 queries from
+     the resident query matrix, as ``all2all_jax`` makes it): the parse
+     kernel's logs against the native oracle (its plain version at this
+     shape does not fit in the script's time), the fold kernel against
+     its plain version, both timed; then the port's CLI ``--backend jax``
+     (in-process, no aln file) on phase 4's viral file, both kernels'
+     counters set to 0 just before and read just after: TSV and ids
+     byte-equal to phase 5's native output, both kernels launched, no
+     replay mismatch, capacity fallbacks (pairs parsed on the native
+     engine) under 1%; its LZ matching beside the cuda (phase 4) and
+     native (phase 5) ones; then ``all2all_sharded`` over the mesh
+     ``[cuda:0, cuda:0]`` on the first 48 viral genomes (counters
+     likewise), equal to ``all2all_jax`` on the card and to the native
+     engine, capacity fallbacks under 1%.
 Then the card's name and power limit, one JSON line of the kernels (time,
 plain time and bound of each, from this run; the group kernel's entry
 also has the hybrid, round-robin and two-process paths' launches), and
@@ -288,7 +308,7 @@ def check_ref_routes(dev, names, codes, params, kernel, plain):
                           plain_on="cpu")
     out = {"batch": dict(res, launches=launches_b, B=len(queries),
                          LqP=args[1].shape[1], skipped=int(ovf.sum()),
-                         logs=logs_b)}
+                         logs=logs_b, args=args, overflow=ovf)}
     args, _ = eng.group_args(eng.build_index(0, dev), 0, dev)
     res = kernel_vs_plain(kernel, plain, args, args[6][None], reps=3,
                           plain_on="cpu")
@@ -589,6 +609,246 @@ def two_process_cli(td, tag, backend, nthreads):
     return res
 
 
+def matching_s(marks):
+    """Seconds of the 'LZ matching' phase in Matcher.times."""
+    for (t0, _), (t, lab) in zip(marks, marks[1:]):
+        if lab == "LZ matching":
+            return t - t0
+    raise AssertionError("no LZ matching phase")
+
+
+def native_matching_s(stderr):
+    """Seconds of the 'LZ matching' phase in a ``-V 2`` run's stderr."""
+    m = re.search(r"^LZ matching : ([0-9.eE+-]+)s$", stderr, re.M)
+    if m is None:
+        raise AssertionError("no LZ matching phase in the native run")
+    return float(m.group(1))
+
+
+def event_ms(fn, reps):
+    """CUDA-event ms of ``fn()``, the mean of `reps` calls."""
+    import torch
+
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def jax_row_batch(dev, codes, params, reps=3):
+    """Phase 15a: the automaton backend's launch of reference row 0, made
+    as ``all2all_jax`` makes it: its 255 queries sorted by length,
+    gathered from the resident query matrix (``gather_qrows`` and
+    ``rows_args``). The parse kernel's logs against the native oracle on
+    every pair with a log (its plain version at this shape does not fit
+    in the script's time: PERF.md), its ms (CUDA events, the mean of
+    `reps` launches after the one that is checked) and bound. The
+    counter is restored: these launches do not count."""
+    import numpy as np
+
+    from lzani_tpu_torch.core import native_engine as ne
+    from lzani_tpu_torch.ops import engine_jax as ej
+    from lzani_tpu_torch.ops.cuda_engine import CudaAll2All
+    from lzani_tpu_torch.ops.parse_kernel import parse_events
+    from lzani_tpu_torch.utils.runinfo import launch_bound_ms
+
+    eng = CudaAll2All(codes, params, devices=[dev])
+    qs = sorted(ej.row_queries(0, len(codes), None),
+                key=lambda q: eng.dszs[q])
+    idx = ej.RefIndexJax(codes[0], params, dev)
+    args, overflow = idx.index.rows_args(*eng.gather_qrows(qs, dev), eng.LqP)
+    launches0 = parse_events.launches
+    ev, nev = parse_events(*args)
+    ms = event_ms(lambda: parse_events(*args), reps)
+    parse_events.launches = launches0
+    cap = args[9]
+    nk, ovf = nev[0].cpu().numpy(), overflow[0].cpu().numpy()
+    evh = ev[0, :, :max(min(int(nk.max()), cap), 1)].cpu().numpy()
+    checked = 0
+    for b, q in enumerate(qs):
+        if ovf[b] or not 0 <= nk[b] <= cap:
+            continue
+        if not np.array_equal(evh[b, :nk[b]],
+                              ne.parse_event_log(codes[0], codes[q], params)):
+            raise AssertionError(f"jax path launch: pair (0, {q})'s log "
+                                 f"differs from the oracle")
+        checked += 1
+    bound, bound_by = launch_bound_ms(args, nev, args[6][None])
+    return dict(args=args, overflow=overflow, ev=ev, nev=nev, B=len(qs),
+                LqP=eng.LqP, queries=[codes[q] for q in qs], ms=ms,
+                bound_ms=bound, bound_by=bound_by, oracle=checked)
+
+
+def check_fold(batch, ref, queries, params, factors, reps=3):
+    """Phase 15a: the fold kernel against its plain version (on the host
+    CPU) on the logs of a parse launch (`batch`: its arguments, overflow
+    flags, ev and nev), masked as ``RefIndexJax.dispatch`` masks them: as
+    the main path calls it (no factors; CUDA events, the mean of `reps`
+    launches after one that serves the comparison) and, with `factors`,
+    once with factors. Stats, status (and factor counts and factors) must
+    be equal, every pair with a log must have status 0 and its stats must
+    equal the native engine's (`ref` x `queries`). The counter is
+    restored: these launches do not count."""
+    import numpy as np
+    import torch
+
+    from lzani_tpu_torch.core import native_engine as ne
+    from lzani_tpu_torch.ops.fold_stats import fold_stats, fold_stats_plain
+    from lzani_tpu_torch.utils.runinfo import fold_bound_ms
+
+    args, ev, nev = batch["args"], batch["ev"], batch["nev"]
+    refbuf, qbuf, _, _, _, _, dsz, nrs, cfg, cap = args
+    skip = batch["overflow"] | (nev < 0) | (nev > cap)
+    fargs = (refbuf, qbuf, ev, torch.where(skip, -1, nev), dsz, nrs, cfg)
+    launches0 = fold_stats.launches
+    stats, status = fold_stats(*fargs)
+    if factors:
+        _, _, fac, nfac = fold_stats(*fargs, want_factors=True)
+    ms = event_ms(lambda: fold_stats(*fargs), reps)
+    fold_stats.launches = launches0
+    cpu = [a.cpu() if isinstance(a, torch.Tensor) else a for a in fargs]
+    t0 = time.perf_counter()
+    p_stats, p_status = fold_stats_plain(*cpu)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+
+    stats, status = stats.cpu(), status.cpu()
+    if not (torch.equal(status, p_status) and torch.equal(stats, p_stats)):
+        raise AssertionError("fold kernel: stats or status differ from the "
+                             "plain version")
+    err, n_fac = 0, None
+    if factors:
+        _, _, p_fac, p_nfac = fold_stats_plain(*cpu, want_factors=True)
+        nfac = nfac.cpu()
+        if not torch.equal(nfac, p_nfac):
+            raise AssertionError("fold kernel: factor counts differ from "
+                                 "the plain version")
+        k = int(nfac.max())
+        fk, pk = fac[0, :, :k].cpu().numpy(), p_fac[0, :, :k].numpy()
+        defined = np.arange(k)[None, :] < nfac[0].numpy()[:, None]
+        err = int(np.abs(fk[defined].astype(np.int64) - pk[defined]).max(
+            initial=0))
+        if err:
+            raise AssertionError(f"fold kernel: factors differ from the "
+                                 f"plain version (max abs err {err})")
+        n_fac = int(nfac.sum())
+    skipped = skip[0].cpu().numpy()
+    want_status = np.where(skipped, 1, 0)
+    if not np.array_equal(status[0].numpy(), want_status):
+        raise AssertionError(f"fold kernel status {status[0].tolist()}")
+    for b in np.flatnonzero(~skipped):
+        want = ne.parse_pair(ref, queries[b], params)[0]
+        if tuple(stats[0, b].tolist()) != want:
+            raise AssertionError(f"fold kernel: pair {b} of the launch "
+                                 f"differs from the native engine")
+    bound, bound_by = fold_bound_ms(ev, fargs[3], 1, qbuf.shape[0])
+    return dict(pairs=int(nev.numel()), skipped=int(skipped.sum()),
+                factors=n_fac, ms=ms, plain_ms=plain_ms, max_abs_err=err,
+                bound_ms=bound, bound_by=bound_by, plain_on="cpu")
+
+
+def counted(fn):
+    """Run `fn` with both kernels' counters set to 0 just before and read
+    just after: (its result, wall s, parse launches, fold launches)."""
+    from lzani_tpu_torch.ops.fold_stats import fold_stats
+    from lzani_tpu_torch.ops.parse_kernel import parse_events
+
+    parse_events.launches = fold_stats.launches = 0
+    t0 = time.perf_counter()
+    out = fn()
+    wall = time.perf_counter() - t0
+    return out, wall, parse_events.launches, fold_stats.launches
+
+
+def check_jax_cli(td, tag, nthreads, n_pairs):
+    """Phase 15b: the port's CLI --backend jax (in-process, no aln file)
+    on the FASTA of `tag`; TSV and ids byte-equal to the native run of
+    the same FASTA, both kernels launched as often as the engine counted,
+    no replay mismatch. Returns (matcher, wall, parse launches, fold
+    launches)."""
+    from lzani_tpu_torch import cli
+
+    fa = os.path.join(td, f"{tag}.fna")
+    out = os.path.join(td, f"{tag}_jax.tsv")
+    argv = ["all2all", "--in-fasta", fa, "--out", out, "-t", nthreads, "-V",
+            "1", "--backend", "jax"]
+    (rc, m), wall, launches, folds = counted(lambda: cli.run(argv))
+    if rc != 0:
+        raise RuntimeError(f"port CLI --backend jax exited {rc}")
+    native = os.path.join(td, f"{tag}_native")
+    for suffix in (".tsv", ".ids.tsv"):
+        with open(out[:-4] + suffix, "rb") as a, \
+                open(native + suffix, "rb") as b:
+            if a.read() != b.read():
+                raise AssertionError(f"{tag} --backend jax: {suffix} differs "
+                                     f"from --backend native")
+    st = m.engine_stats
+    if (launches <= 0 or folds <= 0 or st["launches"] != launches
+            or st["fold_launches"] != folds):
+        raise AssertionError(f"jax path launched parse {launches} and fold "
+                             f"{folds} times (engine counted "
+                             f"{st['launches']} and {st['fold_launches']})")
+    check_jax_stats("jax CLI", st, n_pairs)
+    return m, wall, launches, folds
+
+
+def check_jax_stats(tag, st, n_pairs):
+    """The automaton backend's engine stats: no replay mismatch, every pair
+    folded or run natively, and the native route (capacity fallbacks)
+    under 1% of the pairs, as in phase 6."""
+    if st["replay_mismatches"] or (st["fold_pairs"] + st["cap_fallbacks"]
+                                   != n_pairs):
+        raise AssertionError(f"{tag}: engine stats {st}")
+    if st["cap_fallbacks"] >= 0.01 * n_pairs:
+        raise AssertionError(f"{tag}: {st['cap_fallbacks']} capacity "
+                             f"fallbacks >= 1% of {n_pairs} pairs")
+
+
+def check_mesh(dev, codes, params):
+    """Phase 15c: ``all2all_sharded`` over the mesh [dev, dev] (both
+    kernels' counters set to 0 just before and read just after), equal to
+    ``all2all_jax`` on `dev` and to the native engine, its engine stats
+    within ``check_jax_stats``. Returns (mesh wall, parse launches, fold
+    launches, all2all_jax wall, native wall, capacity fallbacks)."""
+    import copy
+
+    import numpy as np
+
+    from lzani_tpu_torch.core import native_engine as ne
+    from lzani_tpu_torch.ops.engine_jax import all2all_jax
+    from lzani_tpu_torch.parallel.mesh import all2all_sharded, make_mesh
+
+    p = copy.copy(params)
+    p.adjust_threads()
+    mesh = make_mesh([str(dev)] * 2)
+    st = {}
+    got, wall, launches, folds = counted(
+        lambda: all2all_sharded(codes, p, mesh=mesh, stats=st))
+    t0 = time.perf_counter()
+    single = all2all_jax(codes, p, device=dev)
+    t_single = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = ne.all2all(codes, p)
+    t_native = time.perf_counter() - t0
+    for name, a in (("all2all_jax", single), ("native", want)):
+        if not np.array_equal(got, a):
+            bad = np.argwhere((got != a).any(axis=-1))[:5].tolist()
+            raise AssertionError(f"mesh triples differ from {name} at "
+                                 f"(r, q-slot) {bad}")
+    n = len(codes)
+    check_jax_stats("mesh", st, n * (n - 1))
+    if (launches != 2 * n or folds != 2 * n or st["launches"] != launches
+            or st["fold_launches"] != folds):
+        raise AssertionError(f"mesh path: parse {launches} and fold {folds} "
+                             f"launches, not 2 per row ({2 * n}), or not "
+                             f"the engine's count: {st}")
+    return wall, launches, folds, t_single, t_native, st["cap_fallbacks"]
+
+
 def probe_ms():
     """The CLI's card check (``utils.cudadev.cuda_device_count``: libcuda's
     cuInit and cuDeviceGetCount) in a fresh process: (devices, ms of the
@@ -618,6 +878,7 @@ def main() -> int:
 
     from lzani_tpu_torch import synth
     from lzani_tpu_torch.core import native_engine
+    from lzani_tpu_torch.ops import fold_stats
     from lzani_tpu_torch.ops.parse_kernel import load as load_kernels
     from lzani_tpu_torch.ops.parse_kernel import (parse_events,
                                                   parse_events_big,
@@ -638,12 +899,15 @@ def main() -> int:
         return time.perf_counter() - t0
 
     # one compiler per source, started together
-    with ThreadPoolExecutor(2) as pool:
+    with ThreadPoolExecutor(3) as pool:
         nvcc = pool.submit(timed, load_kernels)
+        nvcc_fold = pool.submit(timed, fold_stats.load)
         gxx = pool.submit(timed, native_engine.get_lib)
-        t_nvcc, t_gxx = nvcc.result(), gxx.result()
+        t_nvcc, t_fold, t_gxx = (nvcc.result(), nvcc_fold.result(),
+                                 gxx.result())
     say(2, f"built parse_events.cu (lzt_parse_events, lzt_parse_events_big) "
-           f"with nvcc in {t_nvcc:.2f} s and the port's native engine "
+           f"with nvcc in {t_nvcc:.2f} s, fold_stats.cu (lzt_fold_stats) "
+           f"with nvcc in {t_fold:.2f} s and the port's native engine "
            f"(lzani_core.cpp, g++) in {t_gxx:.2f} s, in parallel")
 
     # ---- group path --------------------------------------------------
@@ -667,6 +931,8 @@ def main() -> int:
          n_aln) = run_both_clis(td, "viral", names, codes, [], nthreads,
                                 parse_events)
         st = m.engine_stats
+        t_cuda_match, t_native_match = (matching_s(m.times),
+                                        native_matching_s(nat_err))
         say(4, f"port CLI --backend cuda: {t_cuda:.2f} s, "
                f"{n_pairs / t_cuda:.1f} pairs/s, launches {launches}, "
                f"engine {json.dumps(st)}; phases: {phase_times(m.times)}")
@@ -834,6 +1100,53 @@ def main() -> int:
                     f"single-process {t_native:.2f} s in phase 5 [{smi}]")
         say(14, f"phases 13-14 took {time.perf_counter() - t_mp0:.1f} s")
 
+        # ---- automaton backend (--backend jax) ------------------------
+        t_p15 = time.perf_counter()
+        f64 = check_fold(rr["batch"], codes[0], codes[:64], params,
+                         factors=True)
+        say(15, f"fold kernel == plain on phase 10's launch (G=1, "
+                f"B={f64['pairs']}, LqP={rr['batch']['LqP']}): stats, "
+                f"status (0 for every pair with a log, {f64['skipped']} "
+                f"skipped), {f64['factors']} factors equal, stats equal to "
+                f"the native engine; kernel {f64['ms']:.3f} ms, plain "
+                f"{f64['plain_ms']:.1f} ms (host CPU), bound "
+                f"{f64['bound_ms']:.5f} ms ({f64['bound_by']}) [{smi}]")
+        jb = jax_row_batch(dev, codes, params)
+        fk = check_fold(jb, codes[0], jb["queries"], params, factors=False)
+        say(15, f"the jax path's launch of row 0 (G=1, B={jb['B']}, LqP="
+                f"{jb['LqP']}, queries from the resident matrix): parse "
+                f"kernel {jb['ms']:.3f} ms, bound {jb['bound_ms']:.4f} ms "
+                f"({jb['bound_by']}), {jb['oracle']} logs equal the oracle; "
+                f"fold kernel == plain (stats, status: {fk['skipped']} "
+                f"skipped), stats equal to the native engine; fold kernel "
+                f"{fk['ms']:.3f} ms, plain {fk['plain_ms']:.1f} ms (host "
+                f"CPU), bound {fk['bound_ms']:.5f} ms ({fk['bound_by']}) "
+                f"[{smi}]")
+        jm, t_jax, j_launches, j_folds = check_jax_cli(td, "viral", nthreads,
+                                                       n_pairs)
+        js = jm.engine_stats
+        if js["batches"] != N_GENOMES or jb["B"] != N_GENOMES - 1:
+            raise AssertionError(f"the jax path ran {js['batches']} batches"
+                                 f" (one of B={N_GENOMES - 1} per row was "
+                                 f"checked above)")
+        t_jax_match = matching_s(jm.times)
+        say(15, f"port CLI --backend jax (no aln file): {t_jax:.2f} s; LZ "
+                f"matching {t_jax_match:.2f} s against cuda {t_cuda_match:.2f}"
+                f" s (phase 4) and native {t_native_match:.2f} s (phase 5); "
+                f"TSV and ids byte-equal to native; parse launches "
+                f"{j_launches}, fold launches {j_folds}, capacity fallbacks "
+                f"{js['cap_fallbacks']}/{n_pairs}, replay mismatches 0; "
+                f"engine {json.dumps(js)}; phases: {phase_times(jm.times)} "
+                f"[{smi}]")
+        (t_mesh, m_launches, m_folds, t_single, t_mesh_nat,
+         m_fallbacks) = check_mesh(dev, codes[:48], params)
+        say(15, f"all2all_sharded over [{dev}, {dev}] on the first 48 viral "
+                f"genomes: {t_mesh:.2f} s, parse launches {m_launches}, fold "
+                f"launches {m_folds}, capacity fallbacks {m_fallbacks}/"
+                f"{48 * 47}; equal to all2all_jax ({t_single:.2f} s) and "
+                f"native ({t_mesh_nat:.2f} s) [{smi}]")
+        say(15, f"phase 15 took {time.perf_counter() - t_p15:.1f} s")
+
     if any(mod == "jax" or mod.startswith(("jax.", "lzani_tpu."))
            or mod == "lzani_tpu" for mod in sys.modules):
         raise AssertionError("jax or the JAX package was imported")
@@ -863,8 +1176,12 @@ def main() -> int:
          "max_abs_err": k["max_abs_err"],
          "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
          "bound_by": k["bound_by"], "library_ms": None},
-        route("parse_events_batch", "lzani_tpu/ops/pallas_engine.py:1353",
-              rr["batch"]),
+        dict(route("parse_events_batch",
+                   "lzani_tpu/ops/pallas_engine.py:1353", rr["batch"]),
+             jax_path={"G": 1, "B": jb["B"], "launches": j_launches,
+                       "ms": jb["ms"], "bound_ms": jb["bound_ms"],
+                       "bound_by": jb["bound_by"],
+                       "oracle_pairs": jb["oracle"], "plain_ms": None}),
         route("dispatch_range", "lzani_tpu/ops/pallas_engine.py:2337",
               rr["range"]),
         {"name": "parse_events_big", "route": "cuda",
@@ -876,7 +1193,19 @@ def main() -> int:
          "bound_ms": full["bound_ms"], "bound_by": full["bound_by"],
          "library_ms": None, "reduced_ms": red["ms"],
          "reduced_plain_ms": red["plain_ms"],
-         "reduced_bound_ms": red["bound_ms"]}]}), flush=True)
+         "reduced_bound_ms": red["bound_ms"]},
+        {"name": "fold_stats", "route": "cuda",
+         "source": "lzani_tpu_torch/csrc/fold_stats.cu",
+         "replaces": "lzani_tpu/ops/parse.py:535",
+         "also_replaces": ["lzani_tpu/ops/parse.py:78"],
+         "launches": j_folds, "mesh_launches": m_folds, "G": 1,
+         "B": jb["B"], "max_abs_err": fk["max_abs_err"], "ms": fk["ms"],
+         "plain_ms": fk["plain_ms"], "plain_on": fk["plain_on"],
+         "bound_ms": fk["bound_ms"], "bound_by": fk["bound_by"],
+         "library_ms": None, "batch64_ms": f64["ms"],
+         "batch64_plain_ms": f64["plain_ms"],
+         "batch64_bound_ms": f64["bound_ms"],
+         "batch64_max_abs_err": f64["max_abs_err"]}]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": kind, "count": count}}),
           flush=True)

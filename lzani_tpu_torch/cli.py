@@ -1,9 +1,13 @@
 """Command-line interface of the port, flag-compatible with the reference
 lz-ani (lz-ani.cpp:105-336): the port's own copy of ``lzani_tpu/cli.py``
-with ``--backend native|cuda|hybrid|auto`` (auto = hybrid, as in the JAX
-package). ``cuda`` and ``hybrid`` without a CUDA device exit 1; they never
-run on the CPU in the card's place. The CLI checks for the card through
-libcuda, without torch (``utils.cudadev``).
+with ``--backend native|cuda|pallas|jax|hybrid|auto``: every name the
+JAX package's CLI accepts, and ``cuda``. ``auto`` means ``hybrid``, as in
+the JAX package; ``pallas`` is the JAX package's name of the event-log
+engine, ``cuda`` here; ``jax`` is the automaton backend, whose triples
+are folded on the device (``ops/engine_jax.py``). Every backend but
+``native`` exits 1 without a CUDA device; none runs on the CPU in the
+card's place. The CLI checks for the card through libcuda, without torch
+(``utils.cudadev``).
 
 A multi-process launch runs the same command in every process, with the
 JAX package's variables set: ``JAX_COORDINATOR_ADDRESS`` (host:port of
@@ -24,7 +28,7 @@ from . import VERSION_STRING, __version__
 from .matcher import Matcher
 from .params import ParamError, Params
 
-BACKENDS = ("native", "cuda", "hybrid", "auto")
+BACKENDS = ("native", "cuda", "pallas", "jax", "hybrid", "auto")
 
 USAGE = """\
 {info}
@@ -60,9 +64,11 @@ Options - LZ-parsing-related:
 Options - other:
   -t, --threads <int>            - no of threads; 0 means auto-detect (default: 0)
   -V, --verbose <int>            - verbosity level (default: 1)
-      --backend <name>           - compute backend: native | cuda | hybrid | auto
-                                   (default: auto = hybrid: the native pool and
-                                   the CUDA engine share one row queue)
+      --backend <name>           - compute backend: native | cuda | pallas | jax |
+                                   hybrid | auto (default: auto = hybrid: the
+                                   native pool and the CUDA engine share one
+                                   row queue; pallas = cuda; jax: the triples
+                                   are folded on the card)
 Multi-process launch (every process runs the same command; one process per
 card; process 0 writes the outputs): set JAX_COORDINATOR_ADDRESS=<host:port>,
 JAX_NUM_PROCESSES=<n> and JAX_PROCESS_ID=<0..n-1> in each process's environment
@@ -207,8 +213,8 @@ def _parse_bool(flag: str, val: str) -> bool:
 
 def run(argv: list[str], device=None):
     """Parse `argv` and run it: (exit code, the Matcher or None).
-    `device` None means the current CUDA device for ``--backend cuda`` and
-    ``hybrid``."""
+    `device` None means the current CUDA device for every backend but
+    ``native``."""
     params = parse_args(argv)
     if params is None:
         return 0, None

@@ -3,11 +3,13 @@ match -> store.
 
 The port's own copy of ``lzani_tpu/matcher.py`` (the phase sequence of
 the reference's ``CLZMatcher::run_all2all``, lz_matcher.cpp:582-617)
-with three backends: ``native`` (the C++ host engine), ``cuda`` (the
-CUDA device engine, ``ops/cuda_engine.all2all_cuda``) and ``hybrid``
-(the native pool and the CUDA engine on one shared row queue,
-``ops/hybrid.all2all_hybrid``); ``auto`` means ``hybrid``, as in the JAX
-package. Its ``pallas`` and ``jax`` backends are not part of the port.
+with four backends: ``native`` (the C++ host engine), ``cuda`` (the
+CUDA device engine, ``ops/cuda_engine.all2all_cuda``), ``hybrid`` (the
+native pool and the CUDA engine on one shared row queue,
+``ops/hybrid.all2all_hybrid``) and ``jax`` (the automaton backend: the
+triples folded on the device, ``ops/engine_jax.all2all_jax``). As in the
+JAX package, ``auto`` means ``hybrid``; ``pallas``, the JAX package's
+name of the event-log engine, means ``cuda``.
 
 A multi-process launch (the JAX package's ``JAX_COORDINATOR_ADDRESS``,
 ``JAX_NUM_PROCESSES`` and ``JAX_PROCESS_ID``, ``parallel.distributed``)
@@ -34,15 +36,19 @@ from .output import (ALN_HEADER, ResultMatrix, alignment_lines,
 from .params import Params
 
 
+#: backend names that mean another backend
+ALIASES = {"auto": "hybrid", "pallas": "cuda"}
+
+
 class Matcher:
-    """One all-vs-all run. After a cuda or hybrid run, ``engine_stats``
-    holds the engine's counters (see ``all2all_cuda`` and
-    ``all2all_hybrid``)."""
+    """One all-vs-all run. After a cuda, hybrid or jax run,
+    ``engine_stats`` holds the engine's counters (see ``all2all_cuda``,
+    ``all2all_hybrid`` and ``all2all_jax``)."""
 
     def __init__(self, params: Params, device=None):
         self.params = params
-        #: engine device for ``cuda`` and ``hybrid``; None = the current
-        #: CUDA device. A CPU device runs the kernels' plain versions
+        #: engine device for every backend but ``native``; None = the
+        #: current CUDA device. A CPU device runs the kernels' plain versions
         #: (tests only).
         self.device = device
         self.store: SequenceStore | None = None
@@ -67,7 +73,7 @@ class Matcher:
     def _join_launch(self) -> None:
         """In a multi-process launch (JAX_COORDINATOR_ADDRESS set): join
         the process group and, unless the caller chose the device, take
-        card process_id % cards for ``cuda`` and ``hybrid`` (the
+        card process_id % cards for every backend but ``native`` (the
         counterpart of the JAX package's ``jax.local_devices()[:1]``).
         Without the variable nothing is imported: a native run loads no
         torch."""
@@ -87,13 +93,19 @@ class Matcher:
                 self.device = f"cuda:{self.process_id % n_cards}"
         self.card_share = distributed.card_share(self.device)
 
+    def _backend(self) -> str:
+        return ALIASES.get(self.params.backend, self.params.backend)
+
     def _start_device(self):
-        """For the cuda backend on a card: a started thread that creates
-        the CUDA context and loads the kernels' and the native engine's
-        libraries while the sequences load (no kernel is launched), or
-        None. The hybrid backend's warm-up thread decides that itself,
-        so a run too short for the device never imports torch."""
-        if self.params.backend != "cuda":
+        """For the cuda and jax backends on a card: a started thread that
+        creates the CUDA context and loads the kernels' and the native
+        engine's libraries while the sequences load (no kernel is
+        launched), or None. The hybrid backend's warm-up thread decides
+        that itself, so a run too short for the device never imports
+        torch; a jax run with an aln file is a native run."""
+        backend = self._backend()
+        if backend not in ("cuda", "jax") or (
+                backend == "jax" and self.params.output_alignment_file_name):
             return None
         import torch
 
@@ -106,10 +118,12 @@ class Matcher:
 
         def setup():
             from .core import native_engine
-            from .ops import parse_kernel
+            from .ops import fold_stats, parse_kernel
 
             torch.empty(1, device=dev)
             parse_kernel.load()
+            if backend == "jax":
+                fold_stats.load()
             native_engine.get_lib()
 
         th = threading.Thread(target=setup, daemon=True)
@@ -214,7 +228,7 @@ class Matcher:
                       f"{self.num_processes} owns {len(rows)} reference rows "
                       f"({len(ids)} pairs)")
 
-        backend = "hybrid" if p.backend == "auto" else p.backend
+        backend = self._backend()
         if backend == "native":
             triples = self._match_native(eng_csr, eng_region)
         elif backend == "hybrid":
@@ -240,6 +254,23 @@ class Matcher:
                                    replay_threads=p.no_threads,
                                    device=self.device, stats=stats,
                                    card_share=self.card_share)
+            self.engine_stats = stats
+            self._log(f"lz-ani-torch engine: {json.dumps(stats)}", level=2)
+        elif backend == "jax" and region_path:
+            # the automaton has no regions path: one native pass serves
+            # the triples and the regions (lzani_tpu/matcher.py)
+            self._log("--backend jax has no alignment-regions path; this "
+                      "run is served by the native engine (one pass)")
+            triples = self._match_native(eng_csr, eng_region)
+        elif backend == "jax":
+            from .ops.engine_jax import all2all_jax
+
+            if self._device_setup is not None:
+                self._device_setup.join()
+            stats = {}
+            triples = all2all_jax(self.store.codes, p, filter_csr=eng_csr,
+                                  progress=self._make_progress_cb(),
+                                  device=self.device, stats=stats)
             self.engine_stats = stats
             self._log(f"lz-ani-torch engine: {json.dumps(stats)}", level=2)
         else:

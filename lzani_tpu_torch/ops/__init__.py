@@ -1,2 +1,4 @@
-"""Device engine of the port: torch prep, the CUDA parse kernel and its
-plain PyTorch version, the all-vs-all loop and the replay finalizer."""
+"""Device engine of the port: torch prep, the CUDA kernels (the
+event-log parse and the fold of a log into its stats) with their plain
+PyTorch versions, the all-vs-all loops of the cuda, hybrid and jax
+backends and the replay finalizer."""

@@ -300,19 +300,25 @@ class CudaRefIndex:
     def batch_args(self, queries: list):
         """(arguments of ``parse_events``, (1, B) overflow flags) of one
         batch: a query with an anchor bucket over CNT_CAP is flagged."""
-        cfg, gi = self.cfg, self.gidx
-        qbs = [query_buffer_np(q, cfg.mrd) for q in queries]
+        qbs = [query_buffer_np(q, self.cfg.mrd) for q in queries]
         dsz = np.array([len(qb) for qb in qbs], np.int32)
         LqP = _bucket(int(dsz.max()) + 1024)
         rows = np.full((len(qbs), LqP), SYM_N_SEQ, np.uint8)
         for b, qb in enumerate(qbs):
             rows[b, :len(qb)] = qb
-        dsz_d = torch.from_numpy(dsz).to(self.device)
+        return self.rows_args(torch.from_numpy(pack3_rows(rows)).to(
+            self.device), torch.from_numpy(dsz).to(self.device), LqP)
+
+    def rows_args(self, q_rows, dsz, LqP: int):
+        """``batch_args`` of query rows already on the device: (B, W)
+        uint8 rows packed 3 symbols per byte (``pack3_rows``, W >= LqP / 3)
+        and their (B,) int32 lengths with the mrd guard, at query bucket
+        `LqP`."""
+        cfg, gi = self.cfg, self.gidx
         qbuf, cand, next_hit, overflow = query_prep(
-            torch.from_numpy(pack3_rows(rows)).to(self.device), dsz_d,
-            gi.ptab, LqP, cfg.mal, cfg.msl, CudaAll2All.CNT_CAP)
-        return ((gi.refbuf, qbuf, gi.poslist, cand, next_hit, gi.win, dsz_d,
-                 gi.nrs, cfg, self.MAXEV - 16), overflow)
+            q_rows, dsz, gi.ptab, LqP, cfg.mal, cfg.msl, CudaAll2All.CNT_CAP)
+        return ((gi.refbuf, qbuf, gi.poslist, cand, next_hit, gi.win,
+                 dsz.contiguous(), gi.nrs, cfg, self.MAXEV - 16), overflow)
 
     def parse_events_batch(self, queries: list) -> list:
         """Event logs of a query batch, one launch: a list of int32 (n, 8)

@@ -1,1 +1,2 @@
-"""Multi-process execution of the port (``distributed``)."""
+"""Multi-process execution of the port (``distributed``) and one
+query batch split over several devices (``mesh``)."""

@@ -1,6 +1,7 @@
 """What the port's measurement scripts print beside their numbers
 (``chip_smoke.py``, ``ab_cli.py``, ``dispatch_probe.py``): the card, the
-CLI's phase timings and engine counters, and a parse launch's bound."""
+CLI's phase timings and engine counters, and the bounds of a parse
+launch and of a fold launch."""
 
 from __future__ import annotations
 
@@ -77,4 +78,29 @@ def launch_bound_ms(args, nev, dsz_pairs):
               + int(nev.clamp(min=0).sum()) * 32 + nev.numel() * 4)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = int(d.sum()) / SCALAR_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def fold_bound_ms(ev, nev, n_refs: int, n_queries: int, nfac=None):
+    """(ms, 'bytes' or 'operations'): the least time the card could take
+    for one ``fold_stats`` launch over the logs `ev` (G, B, evc, 8) and
+    `nev` (G, B) (a pair with nev < 0 is skipped), with `nfac` (G, B)
+    when the launch writes the factors. Bytes, each read or written once:
+    every defined event record (32 B) and nev; the reference and query
+    symbols of each event's extensions (bwd + ext, 1 B each: the aligned
+    ranges the fold compares symbol by symbol); the dsz and nr inputs;
+    the stats, status and factor count of every pair, and the factors
+    (16 B each) when written. Operations: one symbol comparison per
+    aligned symbol."""
+    import torch
+
+    n = nev.long().cpu().clamp(min=0)
+    evh = ev.cpu()
+    defined = (torch.arange(evh.shape[2])[None, None, :] < n[..., None])
+    aligned = int((evh[..., 3].long() + evh[..., 4].long())[defined].sum())
+    nbytes = (int(n.sum()) * 32 + nev.numel() * 4 + 2 * aligned
+              + (n_refs + n_queries) * 4 + nev.numel() * (12 + 4 + 4)
+              + (int(nfac.long().sum()) * 16 if nfac is not None else 0))
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = aligned / SCALAR_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")

@@ -492,3 +492,53 @@ def test_all2all_cuda_two_entries_on_one_card(dev):
     assert len(st["device_units"]) == 2 and min(st["device_units"]) > 0
     assert st["launches"] == parse_events.launches - n0 == st["dispatches"]
     assert st["replay_mismatches"] == 0
+
+
+# ---------------------------------------------------------------------------
+# the automaton backend: the fold kernel
+# ---------------------------------------------------------------------------
+
+def test_fold_kernel_matches_plain_and_all2all_jax_matches_native(dev):
+    """The fold kernel on the parse kernel's logs of the 12 pairs of
+    test_torch_engine_jax.py (one launch each, with and without factors)
+    equals its plain version and the native engine, every status 0; then
+    all2all_jax on the card equals native_engine.all2all on 32 viral
+    genomes, every launch counted."""
+    from test_torch_engine_jax import CASES
+
+    from lzani_tpu_torch.core import native_engine as tne
+    from lzani_tpu_torch.ops import engine_jax as tej
+    from lzani_tpu_torch.ops.fold_stats import fold_stats, fold_stats_plain
+    from lzani_tpu_torch.params import Params as TParams
+
+    p = Params()
+    for name, (ref, q) in CASES.items():
+        args, _ = tce.CudaRefIndex(ref, p, device=dev).batch_args([q])
+        ev, nev = parse_events(*args)
+        fargs = (args[0], args[1], ev, nev, args[6], args[7], args[8])
+        cpu = [a.cpu() if isinstance(a, torch.Tensor) else a for a in fargs]
+        n0 = fold_stats.launches
+        st, status = fold_stats(*fargs)
+        st_f, status_f, fac, nfac = fold_stats(*fargs, want_factors=True)
+        assert fold_stats.launches == n0 + 2
+        pst, pstatus, pfac, pnfac = fold_stats_plain(*cpu, want_factors=True)
+        assert status.tolist() == status_f.tolist() == pstatus.tolist() == [
+            [0]], name
+        assert torch.equal(st.cpu(), pst) and torch.equal(st_f.cpu(), pst)
+        assert tuple(pst[0, 0].tolist()) == ne.parse_pair(ref, q, p)[0]
+        assert torch.equal(nfac.cpu(), pnfac), name
+        k = int(pnfac[0, 0])
+        assert torch.equal(fac[0, 0, :k].cpu(), pfac[0, 0, :k]), name
+    _, codes = synth.viral_set(seed=7, n=32)
+    tp = TParams()
+    st = {}
+    out = tej.all2all_jax(codes, tp, stats=st)
+    assert np.array_equal(out, tne.all2all(codes, tp))
+    assert st["launches"] == st["fold_launches"] == st["batches"] == 32
+    assert st["replay_mismatches"] == 0
+    assert st["fold_pairs"] + st["cap_fallbacks"] == 32 * 31
+    assert st["cap_fallbacks"] < 0.01 * 32 * 31
+    st2 = {}
+    out = tej.all2all_jax(codes, tp, device=[dev, dev], stats=st2)
+    assert np.array_equal(out, tne.all2all(codes, tp))
+    assert st2["launches"] == st2["fold_launches"] == 2 * 32

@@ -209,5 +209,5 @@ def test_cli_cuda_without_gpu_exits_1(tmp_path, monkeypatch, capsys):
 def test_cli_rejects_unknown_backend(tmp_path):
     with pytest.raises(SystemExit) as e:
         tcli.parse_args(["all2all", "--in-fasta", "x", "--out", "y",
-                         "--backend", "pallas"])
+                         "--backend", "tpu"])
     assert e.value.code == 1

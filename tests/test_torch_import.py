@@ -14,6 +14,8 @@ CODE = """
 import sys
 import lzani_tpu_torch, lzani_tpu_torch.ops.cuda_engine, lzani_tpu_torch.cli
 import lzani_tpu_torch.matcher, lzani_tpu_torch.synth, lzani_tpu_torch.ops.hybrid
+import lzani_tpu_torch.ops.engine_jax, lzani_tpu_torch.ops.fold_stats
+import lzani_tpu_torch.parallel.mesh
 bad = sorted(m for m in sys.modules
              if m == 'jax' or m.startswith(('jax.', 'jaxlib', 'lzani_tpu.ops')))
 assert not bad, bad

@@ -78,7 +78,8 @@ def _start(args, env):
                             stderr=subprocess.PIPE, text=True)
 
 
-def _launch(fasta_path, outs, backend, extra_env=None):
+def _launch(fasta_path, outs, backend, extra_env=None, aln=True,
+            verbosity="1"):
     """Start both processes of a launch; returns [(rc, stderr)]."""
     port = _free_port()
     procs = []
@@ -86,10 +87,10 @@ def _launch(fasta_path, outs, backend, extra_env=None):
         env = {"JAX_COORDINATOR_ADDRESS": f"127.0.0.1:{port}",
                "JAX_NUM_PROCESSES": "2", "JAX_PROCESS_ID": str(pid),
                "LZANI_TPU_HYBRID_GREEDY": "1", **(extra_env or {})}
+        out_aln = ["--out-alignment", outs[pid] + ".aln"] if aln else []
         procs.append(_start(["all2all", "--in-fasta", fasta_path, "--out",
-                             outs[pid], "--out-alignment", outs[pid] + ".aln",
-                             "-t", "2", "-V", "1", "--backend", backend],
-                            env))
+                             outs[pid], *out_aln, "-t", "2", "-V",
+                             verbosity, "--backend", backend], env))
     errs = [p.communicate(timeout=300)[1] for p in procs]
     return [(p.returncode, err) for p, err in zip(procs, errs)]
 
@@ -116,6 +117,22 @@ def test_two_process_cli_matches_single_native(backend, fasta, tmp_path):
     # process 1 wrote nothing, and no share's region file is left
     assert sorted(os.listdir(tmp_path)) == ["p0.ids.tsv", "p0.tsv",
                                             "p0.tsv.aln"]
+
+
+def test_two_process_jax_cli_matches_single_native(fasta, tmp_path):
+    """--backend jax without an aln file: each process folds its share's
+    triples on the device (the CPU here), process 0 writes them."""
+    path, single = fasta
+    outs = [str(tmp_path / f"p{pid}.tsv") for pid in range(2)]
+    res = _launch(path, outs, "jax", aln=False, verbosity="2")
+    for pid, (rc, err) in enumerate(res):
+        assert rc == 0, err[-2000:]
+        assert f"multi-host: process {pid}/2 owns 4 reference rows" in err
+        assert '"fold_pairs": 28, "cap_fallbacks": 0' in err
+        assert '"replay_mismatches": 0' in err
+    assert _read(outs[0]) == _read(single)
+    assert _read(outs[0][:-4] + ".ids.tsv") == _read(single[:-4] + ".ids.tsv")
+    assert sorted(os.listdir(tmp_path)) == ["p0.ids.tsv", "p0.tsv"]
 
 
 def test_a_failed_process_fails_the_launch(fasta, tmp_path):
