@@ -11,14 +11,22 @@ Phases (each prints one line; any failure raises, so the exit code is
 non-zero):
   1. the card: torch's device name and nvidia-smi's name and power limit;
   2. build: the CUDA parse kernels (one nvcc build of parse_events.cu,
-     both C entries), the fold kernel (one nvcc build of fold_stats.cu)
-     and the port's native C++ engine (g++), from the sources in this
-     checkout, the three compilers started together;
+     both C entries, and its probe build, -DLZT_PROBE), the fold kernel
+     (one nvcc build of fold_stats.cu) and the port's native C++ engine
+     (g++), from the sources in this checkout, the four compilers started
+     together; ptxas's registers, shared memory and spills of each kernel;
   Group path (default parameters, viral-sized genomes):
   3. kernel = plain: one whole group dispatch of the main path (G = 4
      references x B = 256 queries at the run's LrP/LqP buckets), the
      kernel's event logs against the plain PyTorch version's, element for
-     element, on the same card inputs;
+     element, on the same card inputs, with its launch plan (the
+     reference in shared memory, warps a block, blocks a reference, the
+     blocks an SM holds) and its 10 timed launches beside the 10 before
+     them (their mean, the device-memory segments each set allocated, the
+     SM clock before and after); then the kernel's device-memory instantiation
+     (the one a reference too large for shared memory takes) on the same
+     inputs, its logs against the same plain logs, timed; then the probe
+     build: the heaviest pair's warp span and counts by kind of step;
   4. the port's CLI (``python -m lzani_tpu_torch all2all ... --backend
      cuda``, driven in-process through ``cli.run``) on a seeded synthetic
      viral set: 256 genomes of 20-60 kb in 24 families plus 15% unrelated
@@ -53,7 +61,10 @@ non-zero):
      with the counter set to 0 just before and read just after (one
      launch each); kernel = plain on each route's own inputs (the plain
      version on the host CPU); 8 sampled logs of each against the native
-     oracle.
+     oracle. Then ``parse_events_batch`` on a 300 kb reference (LrP 2^20:
+     its planes do not fit in shared memory) x its 1% relative and an
+     unrelated genome: one launch, of the device-memory instantiation,
+     logs equal to the oracle, timed.
   Hybrid backend (the native pool and the group engine on one row queue):
  11. the port's CLI ``--backend hybrid`` (in-process) with
      LZANI_TPU_HYBRID_GREEDY=1 on phase 4's viral file: TSV and ids
@@ -104,8 +115,11 @@ non-zero):
      engine, capacity fallbacks under 1%.
 Then the card's name and power limit, one JSON line of the kernels (time,
 plain time and bound of each, from this run; the group kernel's entry
-also has the hybrid, round-robin and two-process paths' launches), and
-the result line last.
+also has the hybrid, round-robin and two-process paths' launches, the
+launches of each instantiation, its ms at the three launch shapes of the
+main paths (4 x 256, 1 x 64, 1 x 255), the launches before phase 3's
+timed ones (``event_ms``'s series), the device-memory instantiation's
+checks and the heaviest pair's span), and the result line last.
 Without a CUDA device the script exits 1 and prints no result.
 """
 
@@ -140,11 +154,50 @@ def phase_times(marks):
                      in zip(marks, marks[1:]) if lab)
 
 
-def kernel_vs_plain(kernel, plain, args, dsz_pairs, reps, plain_on=None):
-    """Time `kernel` (CUDA events, the mean of `reps` launches after one
-    that also serves the comparison) and `plain` (host clock, one call) on
-    the same inputs: the card's, or with ``plain_on="cpu"`` copies of them
-    on the host CPU (where a small launch's plain version runs faster);
+def same_logs(tag, ev_a, nev_a, other, ev_b, nev_b):
+    """Every pair's nev and defined records equal, or raise; returns
+    (defined records, max abs error = 0)."""
+    import numpy as np
+
+    na, nb = nev_a.cpu().numpy(), nev_b.cpu().numpy()
+    if not np.array_equal(na, nb):
+        bad = np.argwhere(na != nb)[:5].tolist()
+        raise AssertionError(f"{tag} nev != {other} nev at (g, b) {bad}")
+    mx = max(int(na.max(initial=0)), 1)
+    ea, eb = ev_a[:, :, :mx].cpu().numpy(), ev_b[:, :, :mx].cpu().numpy()
+    defined = (np.arange(mx)[None, None, :] < np.maximum(na, 0)[..., None])
+    err = int(np.abs(ea[defined].astype(np.int64)
+                     - eb[defined]).max(initial=0))
+    if err:
+        raise AssertionError(f"{tag} event logs differ from {other} (max "
+                             f"abs err {err})")
+    return int(defined.sum()), err
+
+
+COUNTERS = ("launches", "launches_shared", "launches_device")
+
+
+def launch_counts(kernel):
+    """The wrapper's launch counters (the group kernel's also by
+    instantiation)."""
+    return {c: getattr(kernel, c) for c in COUNTERS if hasattr(kernel, c)}
+
+
+def set_launch_counts(kernel, counts=None):
+    """Set the wrapper's counters to `counts`, or all to 0."""
+    for c in COUNTERS:
+        if hasattr(kernel, c):
+            setattr(kernel, c, 0 if counts is None else counts[c])
+
+
+def kernel_vs_plain(kernel, plain, args, dsz_pairs, reps, plain_on=None,
+                    series=None):
+    """Time `kernel` (``event_ms``: the mean of `reps` launches after one
+    that also serves the comparison and `reps` others; `series` as
+    there) and `plain`
+    (host clock, one call) on the same inputs: the card's, or with
+    ``plain_on="cpu"`` copies of them on the host CPU (where a small
+    launch's plain version runs faster);
     every pair's nev and defined records must be equal. The counter is
     restored: these launches do not count."""
     import numpy as np
@@ -152,18 +205,10 @@ def kernel_vs_plain(kernel, plain, args, dsz_pairs, reps, plain_on=None):
 
     from lzani_tpu_torch.utils.runinfo import launch_bound_ms
 
-    launches0 = kernel.launches
+    launches0 = launch_counts(kernel)
     ev_k, nev_k = kernel(*args)
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        kernel(*args)
-    stop.record()
-    torch.cuda.synchronize()
-    ms = start.elapsed_time(stop) / reps
-    kernel.launches = launches0
+    ms = event_ms(lambda: kernel(*args), reps, series)
+    set_launch_counts(kernel, launches0)
     p_args = args if plain_on is None else [
         a.to(plain_on) if isinstance(a, torch.Tensor) else a for a in args]
     t0 = time.perf_counter()
@@ -171,21 +216,10 @@ def kernel_vs_plain(kernel, plain, args, dsz_pairs, reps, plain_on=None):
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
 
-    nk, npl = nev_k.cpu().numpy(), nev_p.cpu().numpy()
-    if not np.array_equal(nk, npl):
-        bad = np.argwhere(nk != npl)[:5].tolist()
-        raise AssertionError(f"{kernel.__name__}: kernel nev != plain nev "
-                             f"at (g, b) {bad}")
-    mx = max(int(nk.max(initial=0)), 1)
-    ek, ep = ev_k[:, :, :mx].cpu().numpy(), ev_p[:, :, :mx].cpu().numpy()
-    defined = (np.arange(mx)[None, None, :] < np.maximum(nk, 0)[..., None])
-    err = int(np.abs(ek[defined].astype(np.int64)
-                     - ep[defined]).max(initial=0))
-    if err:
-        raise AssertionError(f"{kernel.__name__}: kernel event logs differ "
-                             f"from plain (max abs err {err})")
+    records, err = same_logs(f"{kernel.__name__}: kernel", ev_k, nev_k,
+                             "plain", ev_p, nev_p)
     bound, bound_by = launch_bound_ms(args, nev_k, dsz_pairs)
-    return dict(pairs=nk.size, records=int(defined.sum()), ms=ms,
+    return dict(pairs=nev_k.numel(), records=records, ms=ms,
                 plain_ms=plain_ms, max_abs_err=err, bound_ms=bound,
                 bound_by=bound_by, ev=ev_k, nev=nev_k,
                 plain_on=plain_on or "card")
@@ -201,9 +235,53 @@ def check_kernel(dev, codes, params):
     eng = ce.CudaAll2All(codes, params, devices=[dev])
     gi = eng.build_group_index([0, 1, 2, 3], dev)
     args, _ = eng.group_args(gi, 0, dev)
+    series = {}
     k = kernel_vs_plain(parse_events, parse_events_plain, args,
-                        args[6].expand(4, -1), reps=3)
-    return dict(k, LrP=gi.LrP, LqP=eng.LqP, B=eng.B)
+                        args[6].expand(4, -1), reps=10, series=series)
+    return dict(k, LrP=gi.LrP, LqP=eng.LqP, B=eng.B, args=args,
+                series=series)
+
+
+def check_device_words(args, ref, reps=3):
+    """Phase 3b: the group kernel's other instantiation (the reference's
+    planes read from device memory, which a reference too large for
+    shared memory takes) on phase 3's dispatch: its logs against phase
+    3's (`ref`, equal to the plain version's), its ms (CUDA events, the
+    mean of `reps` launches after the checked one). The counters are
+    restored: these launches do not count."""
+    from lzani_tpu_torch.ops.parse_kernel import parse_events as kernel
+
+    counts = launch_counts(kernel)
+    ev, nev = kernel(*args, smem_max=0)
+    ms = event_ms(lambda: kernel(*args, smem_max=0), reps)
+    ran = kernel.launches_device - counts["launches_device"]
+    set_launch_counts(kernel, counts)
+    if ran != 2 * reps + 1:
+        raise AssertionError(f"device-memory instantiation ran {ran} of "
+                             f"{2 * reps + 1} launches")
+    records, err = same_logs("device-memory instantiation", ev, nev,
+                             "phase 3's plain", ref["ev"], ref["nev"])
+    return dict(ms=ms, records=records, max_abs_err=err)
+
+
+def probe_heaviest(args, ref):
+    """Phase 3c: the probe build of the group kernel (-DLZT_PROBE) on phase
+    3's dispatch, its logs equal to `ref`'s: the pair of longest warp span
+    (clock64() cycles) with its counts by kind of step, and the SM clock
+    (MHz, now and at most) read just after."""
+    from lzani_tpu_torch.ops import parse_kernel as pk
+    from lzani_tpu_torch.utils.runinfo import sm_clock_mhz
+
+    G, B = args[3].shape[:2]
+    ev, nev, probe = pk.parse_events_probe(*args)
+    same_logs("probe build", ev, nev, "phase 3's plain", ref["ev"],
+              ref["nev"])
+    pr = probe.reshape(G * B, pk.NPROBE).cpu().numpy()
+    j = int(pr[:, 0].argmax())
+    out = {f: int(pr[j, n]) for n, f in enumerate(pk.PROBE_FIELDS)}
+    out["pair"] = list(divmod(j, B))
+    out["sm_clock_mhz"] = sm_clock_mhz()
+    return out
 
 
 def big_launch(dev, codes, params):
@@ -293,26 +371,28 @@ def check_ref_routes(dev, names, codes, params, kernel, plain):
     from lzani_tpu_torch.ops import cuda_engine as ce
 
     queries = codes[:64]
-    kernel.launches = 0
+    set_launch_counts(kernel)
     idx = ce.CudaRefIndex(codes[0], params)
     logs_b = idx.parse_events_batch(queries)
-    launches_b = kernel.launches
+    launches_b = launch_counts(kernel)
 
     eng = ce.CudaAll2All(queries, params, devices=[dev])
-    kernel.launches = 0
+    set_launch_counts(kernel)
     logs_r = eng.collect(eng.dispatch_range(0, 0))
-    launches_r = kernel.launches
+    launches_r = launch_counts(kernel)
 
     args, ovf = idx.batch_args(queries)
     res = kernel_vs_plain(kernel, plain, args, args[6][None], reps=3,
                           plain_on="cpu")
-    out = {"batch": dict(res, launches=launches_b, B=len(queries),
+    out = {"batch": dict(res, launches=launches_b["launches"],
+                         by_instantiation=launches_b, B=len(queries),
                          LqP=args[1].shape[1], skipped=int(ovf.sum()),
                          logs=logs_b, args=args, overflow=ovf)}
     args, _ = eng.group_args(eng.build_index(0, dev), 0, dev)
     res = kernel_vs_plain(kernel, plain, args, args[6][None], reps=3,
                           plain_on="cpu")
-    out["range"] = dict(res, launches=launches_r, B=eng.B, LqP=eng.LqP,
+    out["range"] = dict(res, launches=launches_r["launches"],
+                        by_instantiation=launches_r, B=eng.B, LqP=eng.LqP,
                         logs=logs_r)
 
     rng = np.random.RandomState(SEED)
@@ -329,6 +409,43 @@ def check_ref_routes(dev, names, codes, params, kernel, plain):
                                      f"{names[b]}) differs from the oracle")
         r["oracle"] = len(got)
     return out
+
+
+def check_large_reference(dev, params, kernel, reps=3):
+    """Phase 10b: ``CudaRefIndex.parse_events_batch`` on a reference whose
+    planes do not fit in shared memory (a 300 kb genome: a composite of
+    600,120 symbols, LrP 2^20) x its 1% relative and an unrelated 30 kb
+    genome, `kernel`'s counters set to 0 just before and read just after:
+    one launch, of the device-memory instantiation; both logs equal to
+    the oracle; its ms (CUDA events, the mean of `reps` launches of the
+    same batch, not counted)."""
+    import numpy as np
+
+    from lzani_tpu_torch import synth
+    from lzani_tpu_torch.core import native_engine as ne
+    from lzani_tpu_torch.ops import cuda_engine as ce
+
+    rng = np.random.RandomState(23)
+    ref = rng.randint(0, 4, 300_000).astype(np.uint8)
+    rel = synth.mutate(rng, ref, 0.01, n_ns=3, indels=10)
+    queries = [rel, rng.randint(0, 4, 30_000).astype(np.uint8)]
+    idx = ce.CudaRefIndex(ref, params, dev)
+    set_launch_counts(kernel)
+    logs = idx.parse_events_batch(queries)
+    counts = launch_counts(kernel)
+    if (counts["launches_device"], counts["launches_shared"]) != (1, 0):
+        raise AssertionError(f"a 2^20 reference launched {counts}, not one "
+                             f"device-memory launch")
+    for q, ev in zip(queries, logs):
+        if ev is None or not np.array_equal(
+                ev, ne.parse_event_log(ref, q, params)):
+            raise AssertionError("large reference: a log differs from the "
+                                 "oracle")
+    args, _ = idx.batch_args(queries)
+    ms = event_ms(lambda: kernel(*args), reps)
+    set_launch_counts(kernel, counts)
+    return dict(ms=ms, LrP=idx.gidx.LrP, LqP=args[1].shape[1],
+                records=sum(len(ev) for ev in logs), launches=counts)
 
 
 def sampled_oracle_check(dev, codes, params, rng):
@@ -372,11 +489,12 @@ def cli_in_process(fa, out, backend, extra, nthreads, kernel):
     argv = ["all2all", "--in-fasta", fa, "--out", out, "--out-alignment",
             out + ".aln", "-t", nthreads, "-V", "1", *extra, "--backend",
             backend]
-    kernel.launches = 0
+    set_launch_counts(kernel)
     t0 = time.perf_counter()
     rc, matcher = cli.run(argv)
     wall = time.perf_counter() - t0
     launches = kernel.launches
+    matcher.launch_counts = launch_counts(kernel)
     if rc != 0:
         raise RuntimeError(f"port CLI --backend {backend} exited {rc} "
                            f"({fa})")
@@ -524,7 +642,7 @@ def check_round_robin(dev, codes, params, kernel):
     p = copy.copy(params)
     p.adjust_threads()
     st = {}
-    kernel.launches = 0
+    set_launch_counts(kernel)
     t0 = time.perf_counter()
     got = all2all_cuda(codes, p, devices=[dev, dev], stats=st)
     wall = time.perf_counter() - t0
@@ -625,19 +743,42 @@ def native_matching_s(stderr):
     return float(m.group(1))
 
 
-def event_ms(fn, reps):
-    """CUDA-event ms of ``fn()``, the mean of `reps` calls."""
+def event_ms(fn, reps, series=None):
+    """CUDA-event ms of ``fn()``: the mean of `reps` calls that follow
+    `reps` others, timed apart. With a dict `series`, it also gets the
+    first calls' mean (``first_ms``), the device-memory segments each set
+    of calls made the caching allocator take (``first_segments``,
+    ``segments``) and the SM clock (MHz, nvidia-smi) just before the
+    first call and just after the last (``clock_before_mhz``,
+    ``clock_after_mhz``)."""
     import torch
 
+    from lzani_tpu_torch.utils.runinfo import sm_clock_mhz
+
+    def segments():
+        return torch.cuda.memory_stats().get("segment.all.allocated", 0)
+
+    if series is not None:
+        series["clock_before_mhz"] = sm_clock_mhz()[0]
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    seg = [segments()]
+    marks[0].record()
     for _ in range(reps):
         fn()
-    stop.record()
+    marks[1].record()
+    seg.append(segments())
+    for _ in range(reps):
+        fn()
+    marks[2].record()
     torch.cuda.synchronize()
-    return start.elapsed_time(stop) / reps
+    seg.append(segments())
+    if series is not None:
+        series.update(first_ms=marks[0].elapsed_time(marks[1]) / reps,
+                      clock_after_mhz=sm_clock_mhz()[0],
+                      first_segments=seg[1] - seg[0],
+                      segments=seg[2] - seg[1])
+    return marks[1].elapsed_time(marks[2]) / reps
 
 
 def jax_row_batch(dev, codes, params, reps=3):
@@ -662,10 +803,10 @@ def jax_row_batch(dev, codes, params, reps=3):
                 key=lambda q: eng.dszs[q])
     idx = ej.RefIndexJax(codes[0], params, dev)
     args, overflow = idx.index.rows_args(*eng.gather_qrows(qs, dev), eng.LqP)
-    launches0 = parse_events.launches
+    launches0 = launch_counts(parse_events)
     ev, nev = parse_events(*args)
     ms = event_ms(lambda: parse_events(*args), reps)
-    parse_events.launches = launches0
+    set_launch_counts(parse_events, launches0)
     cap = args[9]
     nk, ovf = nev[0].cpu().numpy(), overflow[0].cpu().numpy()
     evh = ev[0, :, :max(min(int(nk.max()), cap), 1)].cpu().numpy()
@@ -757,7 +898,8 @@ def counted(fn):
     from lzani_tpu_torch.ops.fold_stats import fold_stats
     from lzani_tpu_torch.ops.parse_kernel import parse_events
 
-    parse_events.launches = fold_stats.launches = 0
+    set_launch_counts(parse_events)
+    fold_stats.launches = 0
     t0 = time.perf_counter()
     out = fn()
     wall = time.perf_counter() - t0
@@ -879,13 +1021,16 @@ def main() -> int:
     from lzani_tpu_torch import synth
     from lzani_tpu_torch.core import native_engine
     from lzani_tpu_torch.ops import fold_stats
+    from lzani_tpu_torch.ops.build import build_report
+    from lzani_tpu_torch.ops.parse_kernel import (launch_plan, sm_count,
+                                                  smem_limit)
     from lzani_tpu_torch.ops.parse_kernel import load as load_kernels
-    from lzani_tpu_torch.ops.parse_kernel import (parse_events,
+    from lzani_tpu_torch.ops.parse_kernel import (occupancy, parse_events,
                                                   parse_events_big,
                                                   parse_events_plain)
     from lzani_tpu_torch.params import Params
     from lzani_tpu_torch.utils.runinfo import (card_name_and_power,
-                                               cli_timings)
+                                               cli_timings, ptxas_lines)
 
     dev = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
@@ -898,27 +1043,44 @@ def main() -> int:
         fn()
         return time.perf_counter() - t0
 
-    # one compiler per source, started together
-    with ThreadPoolExecutor(3) as pool:
+    # one compiler per source and build, started together
+    with ThreadPoolExecutor(4) as pool:
         nvcc = pool.submit(timed, load_kernels)
+        nvcc_probe = pool.submit(timed, lambda: load_kernels(probe=True))
         nvcc_fold = pool.submit(timed, fold_stats.load)
         gxx = pool.submit(timed, native_engine.get_lib)
-        t_nvcc, t_fold, t_gxx = (nvcc.result(), nvcc_fold.result(),
-                                 gxx.result())
+        t_nvcc, t_probe, t_fold, t_gxx = (
+            nvcc.result(), nvcc_probe.result(), nvcc_fold.result(),
+            gxx.result())
+    ptxas = ptxas_lines(build_report("parse_events"))
     say(2, f"built parse_events.cu (lzt_parse_events, lzt_parse_events_big) "
-           f"with nvcc in {t_nvcc:.2f} s, fold_stats.cu (lzt_fold_stats) "
-           f"with nvcc in {t_fold:.2f} s and the port's native engine "
-           f"(lzani_core.cpp, g++) in {t_gxx:.2f} s, in parallel")
+           f"with nvcc in {t_nvcc:.2f} s, its probe build (-DLZT_PROBE) in "
+           f"{t_probe:.2f} s, fold_stats.cu (lzt_fold_stats) with nvcc in "
+           f"{t_fold:.2f} s and the port's native engine (lzani_core.cpp, "
+           f"g++) in {t_gxx:.2f} s, in parallel; ptxas: "
+           + "; ".join(ptxas))
 
     # ---- group path --------------------------------------------------
     names, codes = synth.viral_set(seed=SEED, n=N_GENOMES)
     params = Params()
     k = check_kernel(dev, codes, params)
+    plan = launch_plan(4, k["B"], k["LrP"], sm_count(dev), smem_limit(dev))
+    k["plan"] = dict(smem=plan[0], warps=plan[1], blocks_per_ref=plan[2],
+                     blocks_per_sm_max=occupancy(plan[0], plan[1]))
     say(3, f"kernel == plain on one dispatch (G=4, B={k['B']}, "
            f"LrP={k['LrP']}, LqP={k['LqP']}): {k['pairs']} pairs, "
            f"{k['records']} event records equal; kernel {k['ms']:.2f} ms, "
            f"plain {k['plain_ms']:.1f} ms, bound {k['bound_ms']:.4f} ms "
-           f"({k['bound_by']}) [{smi}]")
+           f"({k['bound_by']}); launch plan {json.dumps(k['plan'])}; the "
+           f"10 launches before the timed ones {json.dumps(k['series'])} "
+           f"[{smi}]")
+    dw = check_device_words(k["args"], k)
+    say(3, f"device-memory instantiation on the same dispatch: "
+           f"{dw['records']} records equal to the plain version's; kernel "
+           f"{dw['ms']:.2f} ms [{smi}]")
+    heavy = probe_heaviest(k["args"], k)
+    say(3, f"probe build on the same dispatch, logs equal: the heaviest "
+           f"pair {json.dumps(heavy)} [{smi}]")
 
     nthreads = str(os.cpu_count() or 1)
     n_pairs = N_GENOMES * (N_GENOMES - 1)
@@ -931,10 +1093,12 @@ def main() -> int:
          n_aln) = run_both_clis(td, "viral", names, codes, [], nthreads,
                                 parse_events)
         st = m.engine_stats
+        main_counts = m.launch_counts
         t_cuda_match, t_native_match = (matching_s(m.times),
                                         native_matching_s(nat_err))
         say(4, f"port CLI --backend cuda: {t_cuda:.2f} s, "
-               f"{n_pairs / t_cuda:.1f} pairs/s, launches {launches}, "
+               f"{n_pairs / t_cuda:.1f} pairs/s, launches {launches} "
+               f"{json.dumps(m.launch_counts)}, "
                f"engine {json.dumps(st)}; phases: {phase_times(m.times)}")
         say(5, f"port CLI --backend native: {t_native:.2f} s; TSV ({n_rows} "
                f"rows) and ids byte-equal, aln ({n_aln} rows) equal as a "
@@ -1035,6 +1199,12 @@ def main() -> int:
                     f"logs equal the oracle; kernel {r['ms']:.3f} ms, plain "
                     f"{r['plain_ms']:.1f} ms (host CPU), bound "
                     f"{r['bound_ms']:.4f} ms ({r['bound_by']}) [{smi}]")
+
+        lr = check_large_reference(dev, params, parse_events)
+        say(10, f"CudaRefIndex.parse_events_batch on a 300 kb reference "
+                f"(LrP={lr['LrP']}, LqP={lr['LqP']}) x 2 queries: launches "
+                f"{json.dumps(lr['launches'])}, {lr['records']} records "
+                f"equal to the oracle; kernel {lr['ms']:.3f} ms [{smi}]")
 
         # ---- hybrid path (the default backend) -----------------------
         hm, h_launches, t_hyb, n_rows, n_aln = check_hybrid(
@@ -1157,7 +1327,9 @@ def main() -> int:
         return {"name": name, "route": "cuda",
                 "source": "lzani_tpu_torch/csrc/parse_events.cu",
                 "replaces": replaces, "entry": "lzt_parse_events",
-                "launches": r["launches"], "max_abs_err": r["max_abs_err"],
+                "launches": r["launches"],
+                "launches_by_instantiation": r["by_instantiation"],
+                "max_abs_err": r["max_abs_err"],
                 "ms": r["ms"], "plain_ms": r["plain_ms"],
                 "plain_on": r["plain_on"], "bound_ms": r["bound_ms"],
                 "bound_by": r["bound_by"], "library_ms": None}
@@ -1170,16 +1342,27 @@ def main() -> int:
          "replaces": "lzani_tpu/ops/pallas_v7.py:56",
          "also_serves": ["lzani_tpu/ops/pallas_engine.py:2214",
                          "lzani_tpu/ops/pallas_v5.py:56"],
-         "launches": launches, "hybrid_launches": h_launches,
+         "launches": launches,
+         "launches_by_instantiation": main_counts,
+         "hybrid_launches": h_launches,
          "round_robin_launches": rr_launches,
          "two_process_launches": mp_launches,
          "max_abs_err": k["max_abs_err"],
          "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
-         "bound_by": k["bound_by"], "library_ms": None},
+         "bound_by": k["bound_by"], "library_ms": None,
+         "ms_by_shape": {"4x256": k["ms"], "1x64": rr["batch"]["ms"],
+                         "1x255": jb["ms"]},
+         "timing_4x256": k["series"],
+         "launch_plan_4x256": k["plan"],
+         "device_instantiation": {"G": 4, "B": k["B"], "ms": dw["ms"],
+                                  "max_abs_err": dw["max_abs_err"],
+                                  "large_reference": lr},
+         "heaviest_pair": heavy},
         dict(route("parse_events_batch",
                    "lzani_tpu/ops/pallas_engine.py:1353", rr["batch"]),
              jax_path={"G": 1, "B": jb["B"], "launches": j_launches,
-                       "ms": jb["ms"], "bound_ms": jb["bound_ms"],
+                       "ms": jb["ms"],
+                       "bound_ms": jb["bound_ms"],
                        "bound_by": jb["bound_by"],
                        "oracle_pairs": jb["oracle"], "plain_ms": None}),
         route("dispatch_range", "lzani_tpu/ops/pallas_engine.py:2337",

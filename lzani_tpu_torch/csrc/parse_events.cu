@@ -20,65 +20,96 @@
 // lza_replay_finalize, which rebuilds exact stats/regions and
 // cross-checks bwd and ext.
 //
-// Design: one warp per pair. Every lane holds the same scalar automaton
-// state (that of Parser::parse, cut down to the decisions that produce
-// events), and every decision comes from a warp vote, so control flow
-// never diverges inside a warp. The scans spread over the lanes, 32
-// positions per step:
-//   * LCE: lane l compares position r + l; __ballot_sync of the
-//     mismatches and __ffs give the first one;
-//   * extensions (extend_fwd/extend_bwd): the ballot of the mismatches
-//     gives the sliding window's count at each lane as a carry plus two
-//     popcounts (misses entering the window up to the lane, misses
-//     leaving it); for aw <= 32 the leaving misses are the last 64
-//     positions' mask shifted by aw, above that each lane re-reads the
-//     position it drops. The scan stops at the first lane over am; the
-//     result is the last match before it that ends a run of >= ar;
-//   * synced seed window [max(0, pred-lit_run), pred+mrd): each lane
-//     checks the msl-prefix at its positions by direct symbol comparison
-//     (query N = 5 never equals reference N = 4, so a prefix match
-//     implies valid k-mers on both sides); each survivor, in ascending
-//     position, gets the warp's LCE: survivors are few (one in a
-//     non-repetitive window) but their LCEs unbounded (megabases in a
-//     related genome), so a lane's own serial LCE would bring back the
-//     one-thread scan. Keeping the longest, then the nearest to pred, an
-//     equal distance keeping the earlier position, is the order
-//     (length desc, |p - pred| asc, p asc);
-//   * anchors: poslist[start : start+cnt] in list order, the warp's LCE
-//     per candidate (counts are 0-3 almost everywhere); strict > keeps
-//     the smallest position; an anchor at position 0 is ignored only
-//     when synced.
-// Scalar and uniform: the desync jump through next_hit, the WIN lookup
-// (the host-built bit table, an exact replica of the reference's f64
-// fpow comparison: no f64 on the device), and the bwd-cap bookkeeping
-// (the pending literal factor after the region-kill merge, carried in
-// reg_lo, reg_hi and lit_below as pallas_v7 does). Lanes 0-7 write each
-// record, lane 0 the count. The candidate table is a template parameter:
-//   PackedCand   (group path) start << 7 | min(count, 127) per query
-//                position; rows over CNT_CAP fall back on the host;
-//   TwoPlaneCand (long-genome path) a start plane and a count plane per
-//                pair, counts unbounded (the reference's ht_long probe
-//                chains are unbounded too).
-// Symbols past a buffer's semantic end read as N (4 for the reference,
-// 5 for the query), which bounds every LCE and scan without caps. The
-// query length dsz is per query on the group path and per pair on the
-// long-genome path, where the self pair gets dsz = msl (a no-op).
-// Offsets of the per-pair planes are size_t (pair x LqP exceeds 2^31 at
-// long-genome sizes); positions fit in int (LrP <= 2^26).
+// The automaton (parse_pair): one warp per pair. Every lane holds the same
+// scalar state (that of Parser::parse, cut down to the decisions that
+// produce events), and every decision comes from a warp vote, so control
+// flow never diverges inside a warp. Scalar and uniform: the desync jump
+// through next_hit, the WIN lookup (the host-built bit table, an exact
+// replica of the reference's f64 fpow comparison: no f64 on the device),
+// and the bwd-cap bookkeeping (the pending literal factor after the
+// region-kill merge, carried in reg_lo, reg_hi and lit_below as pallas_v7
+// does). Lanes 0-7 write each record, lane 0 the count. Its searches:
+//   * anchors: poslist[start : start+cnt]; the longest exact LCE >= mal
+//     wins, the first in list order (the smallest position) on a tie;
+//   * synced seed window [max(0, pred-lit_run), pred+mrd): positions whose
+//     msl-prefix matches (query N = 5 never equals reference N = 4, so a
+//     prefix match implies valid k-mers on both sides), ordered by (length
+//     desc, |p - pred| asc, p asc);
+//   * extensions (extend_fwd/extend_bwd), 32 positions a step: the
+//     mismatch mask gives the sliding window's count at each lane as a
+//     carry plus two popcounts (misses entering the window up to the lane,
+//     misses leaving it); for aw <= 32 the leaving misses are the last 64
+//     positions' mask shifted by aw, above that the mask at offset -aw.
+//     The scan stops at the first lane over am; the result is the last
+//     match before it that ends a run of >= ar.
+// Symbols past a buffer's semantic end read as N, which bounds every LCE
+// and scan without caps.
 //
-// What bounds it: the latency of dependent steps, not bandwidth. A step
-// is a coalesced 32-byte load of each buffer and a few votes; a related
-// long-genome pair's extensions stream megabases through L1 and L2 one
-// step after another, and a literal step of the group path checks up to
-// lit_run + mrd seed positions. Pairs are independent warps, so a launch
-// lasts as long as its slowest pair, not its slowest group of 32 pairs.
-// Launch: four warps per block, one per scheduler of an SM. Spreading a
-// small launch wider gains nothing: the 48-pair bacterial launch at one
-// warp per block (48 SMs) took 76.10 ms against 75.15-75.20 ms at four
-// (12 SMs), and the 1,024-pair group dispatch is the same either way
-// (dispatch_probe.py --baseline, NVIDIA H100 80GB HBM3, 700.00 W).
+// Group path (lzt_parse_events), designed for Hopper. What bounded the
+// one-warp-per-pair kernel it replaces was the chain of dependent loads
+// in the heaviest pair, not bandwidth: a launch lasts as long as its
+// slowest pair, and that pair (56 kb x 55 kb, 27,616 decisions) spent 77%
+// of its span in the synced seed window, whose lanes checked the
+// msl-prefix with up to msl serial one-byte loads from device memory
+// (about 225 cycles each), and 10% on the candidate word of each step
+// (dispatch_probe.py --probe; NVIDIA H100 80GB HBM3, 700.00 W). So:
+//   * the symbols are bit planes: a pre-pass kernel (pack_planes) turns
+//     each reference and query row into three planes of 32-symbol words
+//     (the 2-bit code as a low and a high plane, and an N plane: 3 bits a
+//     symbol; N at and past the row's length). 32 symbols at any position
+//     are two words per plane and a funnel shift, and the mismatch mask of
+//     two windows is (lo ^ lo') | (hi ^ hi') | N | N';
+//   * a block serves one reference: its prologue copies the reference's
+//     planes into dynamic shared memory with cp.async (LrP 2^17: 48 KiB,
+//     four blocks an SM; up to 2^19: 192 KiB), so every reference read of
+//     the seed window, the anchors, the LCEs and the scans is a
+//     shared-memory load. A reference whose planes do not fit is read from
+//     device memory by the other instantiation of the same kernel,
+//     chosen by shape before the launch;
+//   * a run of synced literal steps is taken at once: step j of the run
+//     would test the query at i + j against the window [lo, pred + j +
+//     mrd), so on the diagonal p - i the hits of all the run's steps are
+//     the runs of msl matches in one 64-position mismatch mask; lane l
+//     takes diagonals l, l + 32, ..., the candidate words give the first
+//     step with anchors, and one reduction gives the first step that is
+//     not literal (up to 32 steps, and never past the desync at lit_run >
+//     mqd). The decisions and their order are those of the steps one by
+//     one;
+//   * the seed window of a step is one pass: each lane compares its
+//     positions' 32-symbol windows with the query's (held in registers,
+//     reloaded once per 32 positions of i) and the msl-prefix is a mask of
+//     that compare; a lane keeps its own best and one warp reduction picks
+//     the winner;
+//   * an LCE compares 32 symbols a lane, 1,024 positions a warp step; the
+//     anchor candidates get their first 32 symbols compared in parallel,
+//     one lane each, and only those that match all 32 need a warp LCE;
+//   * the candidate words of 32 query positions are loaded at once, one a
+//     lane, and taken with a shuffle at each step;
+//   * the candidate and query words at an event's end are loaded before
+//     its forward extension runs, so their latency overlaps the scan;
+//   * the grid is (slice, reference); a block's warps take that
+//     reference's queries from a counter, longest first (the wrapper
+//     zeroes the counter and orders the queries), with enough blocks to
+//     cover the SMs at G = 1 as at G = 4.
+// The viral group dispatch went from 28.0-28.2 to 3.4 ms, and its heaviest
+// pair from 56.8 M to 6.17 M cycles in 2,453 iterations. That span is now
+// the latency of device-memory loads: the lookahead's 38% mostly waits
+// for candidate and query words, the extensions' 21% for query words,
+// the anchor search's 19% for position-list entries; the seed window
+// takes 5% (dispatch_probe.py --probe; NVIDIA H100 80GB HBM3, 700.00 W).
+// Long-genome path (lzt_parse_events_big): references of up to 2^25
+// symbols cannot live in shared memory; its kernel keeps one-byte symbols
+// in device memory, one warp per pair in pair order, four warps a block
+// (spreading its 48 pairs one warp a block gained nothing: 76.10 against
+// 75.15-75.20 ms, dispatch_probe.py --baseline, NVIDIA H100 80GB HBM3,
+// 700.00 W). Its candidate table has a start and an unbounded count plane
+// per pair (the reference's ht_long probe chains are unbounded too), and
+// per-pair query lengths (the self pair gets dsz = msl: a no-op). Offsets
+// of per-pair planes are size_t (pair x LqP exceeds 2^31 at long-genome
+// sizes); positions fit in int (LrP <= 2^26).
 // ============================================================================
 
+#include <climits>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -89,99 +120,64 @@ constexpr int SYM_N_REF = 4;
 constexpr int SYM_N_SEQ = 5;
 constexpr int LANES = 32;
 constexpr unsigned FULL = 0xffffffffu;
-constexpr int WARPS = 4;  // warps per block
+constexpr int WARPS_BIG = 4;   // warps per block of the long-genome kernel
+constexpr int MAX_WARPS = 8;   // warps per block of the group kernel
+constexpr int SEED_CHUNKS = 4; // 32-position chunks of a seed-window pass
+
+// Probe build (-DLZT_PROBE, dispatch_probe.py --probe): per pair of the
+// group kernel, the warp's clock64() span and counts by kind of step.
+enum {
+    PR_SPAN, PR_STEPS, PR_JUMPS, PR_ANC_CAND, PR_ANC_LCE, PR_SYNCED,
+    PR_SYNCED_LIT, PR_SEED_CHUNKS, PR_SEED_LOADS, PR_SEED_HITS,
+    PR_SEED_LCE, PR_EXT_BWD, PR_EXT_FWD, PR_EVENTS, PR_CYC_ANC,
+    PR_CYC_SEED, PR_CYC_EXT, PR_SKIPPED, PR_CYC_RUN, PR_CYC_JUMP,
+    NPROBE = 20
+};
+#ifdef LZT_PROBE
+#define PROBE(stmt) stmt
+#else
+#define PROBE(stmt)
+#endif
 
 struct Cfg {
     int mal, msl, mrd, mqd, reg, aw, am, ar;
 };
 
-struct Pair {
-    const uint8_t* ref;  // composite reference buffer (row g)
-    int nr;              // composite length
-    const uint8_t* q;    // query buffer (row b)
-    int dsz;             // query length + mrd
-};
-
-__device__ __forceinline__ int rsym(const Pair& P, int p) {
-    return (p >= 0 && p < P.nr) ? (int)P.ref[p] : SYM_N_REF;
-}
-
-__device__ __forceinline__ int qsym(const Pair& P, int p) {
-    return (p >= 0 && p < P.dsz) ? (int)P.q[p] : SYM_N_SEQ;
-}
-
 // highest set bit of m != 0
 __device__ __forceinline__ int top_bit(unsigned m) { return 31 - __clz(m); }
 
-// Longest common extension of ref[rp..] and q[qp..], known equal below
-// `from` (Parser::match_len), 32 offsets per step. The N sentinels end it.
-__device__ int lce(const Pair& P, int rp, int qp, int from, int lane) {
-    for (int r = from;; r += LANES) {
-        const int o = r + lane;
-        const unsigned m =
-            __ballot_sync(FULL, rsym(P, rp + o) != qsym(P, qp + o));
-        if (m) return r + __ffs(m) - 1;
-    }
-}
+// ---------------------------------------------------------------------------
+// candidate tables
+// ---------------------------------------------------------------------------
 
-template <bool FWD>
-__device__ __forceinline__ bool miss_at(const Pair& P, int dpos, int rpos,
-                                        int e) {
-    return FWD ? qsym(P, dpos + e) != rsym(P, rpos + e)
-               : qsym(P, dpos - 1 - e) != rsym(P, rpos - 1 - e);
-}
-
-// Sliding-window approximate extension (Parser::extend_fwd/extend_bwd):
-// advance while the mismatches among the last aw symbols stay <= am; the
-// result is the longest prefix that ends in a run of >= ar matches (the
-// run starts at ar, so a match at e = 0 counts). 32 positions per step:
-// bad(e) = carry + misses entering in [base, e] - misses leaving.
-template <bool FWD>
-__device__ int ext_scan(const Pair& P, const Cfg& c, int dpos, int rpos,
-                        int max_len, int lane) {
-    const unsigned le = FULL >> (31 - lane);  // lanes <= this one
-    int carry = 0;                            // misses in the window at base-1
-    int lastmiss = -1 - c.ar;                 // the virtual run before e = 0
-    int last = 0;
-    unsigned prev = 0;                        // miss mask of the last step
-    for (int base = 0; base < max_len; base += LANES) {
-        const int e = base + lane;
-        const bool in = e < max_len;
-        const bool miss = in && miss_at<FWD>(P, dpos, rpos, e);
-        const unsigned M = __ballot_sync(FULL, miss);
-        // lanes whose window drops a miss (position e - aw)
-        unsigned O;
-        if (c.aw <= LANES) {
-            O = (unsigned)((((unsigned long long)M << LANES) | prev)
-                           >> (LANES - c.aw));
-        } else {
-            O = __ballot_sync(FULL, in && e >= c.aw &&
-                                        miss_at<FWD>(P, dpos, rpos, e - c.aw));
-        }
-        const int bad = carry + __popc(M & le) - __popc(O & le);
-        const unsigned S = __ballot_sync(FULL, !in || bad > c.am);
-        const unsigned Mle = M & le;
-        const int lm = Mle ? base + top_bit(Mle) : lastmiss;
-        unsigned Q = __ballot_sync(FULL, in && !miss && e - lm >= c.ar);
-        if (S) Q &= (1u << (__ffs(S) - 1)) - 1;  // lanes before the stop
-        if (Q) last = base + top_bit(Q) + 1;
-        if (S) break;
-        carry += __popc(M) - __popc(O);
-        if (M) lastmiss = base + top_bit(M);
-        prev = M;
-    }
-    return last;
-}
-
-// Group path: (G, B, LqP) words start << 7 | min(count, 127).
+// Group path: (G, B, LqP) words start << 7 | min(count, 127). The words of
+// 32 positions from `base` are held one a lane (warp calls), loaded where
+// a step finds none held or ahead, at an event's end.
 struct PackedCand {
     const int32_t* cd;
-    __device__ PackedCand(const int32_t* cand, int pair, int LqP)
-        : cd(cand + (size_t)pair * LqP) {}
-    __device__ __forceinline__ void get(int i, int& start, int& cnt) const {
-        const int cw = cd[i];
+    int LqP;
+    int base = INT_MIN;  // first cached position
+    int mine = 0;        // this lane's word: position base + lane
+    __device__ PackedCand(const int32_t* row, int lqp) : cd(row), LqP(lqp) {}
+    __device__ __forceinline__ void load(int i, int lane) {
+        base = i;
+        mine = i + lane < LqP ? cd[i + lane] : 0;
+    }
+    __device__ __forceinline__ void get(int i, int& start, int& cnt,
+                                        int lane) {
+        if (i < base || i >= base + LANES) load(i, lane);
+        const int cw = __shfl_sync(FULL, mine, i - base);
         start = cw >> 7;
         cnt = cw & 127;
+    }
+    // the first j < n (1 <= n <= 32) with candidates at i + j, else n;
+    // n is cut to the words held (loaded at i when i is not among them)
+    __device__ __forceinline__ int first_with(int i, int n, int lane) {
+        if (i < base || i >= base + LANES) load(i, lane);
+        n = min(n, base + LANES - i);
+        const unsigned m = __ballot_sync(FULL, (mine & 127) != 0) >> (i - base);
+        const unsigned mn = n >= LANES ? m : m & ((1u << n) - 1);
+        return mn ? __ffs(mn) - 1 : n;
     }
 };
 
@@ -189,83 +185,509 @@ struct PackedCand {
 struct TwoPlaneCand {
     const int32_t* st;
     const int32_t* ct;
-    __device__ TwoPlaneCand(const int32_t* cand, int pair, int LqP)
-        : st(cand + (size_t)pair * 2 * LqP), ct(st + LqP) {}
-    __device__ __forceinline__ void get(int i, int& start, int& cnt) const {
+    __device__ TwoPlaneCand(const int32_t* cand, size_t pair, int LqP)
+        : st(cand + pair * 2 * LqP), ct(st + LqP) {}
+    __device__ __forceinline__ void get(int i, int& start, int& cnt,
+                                        int) const {
         start = st[i];
         cnt = ct[i];
     }
 };
 
-// dsz_per_pair: dszs is (G, B) (long-genome path) instead of (B,).
-template <class Cand>
-__global__ void __launch_bounds__(WARPS * LANES) parse_events_kernel(
-    const uint8_t* __restrict__ refbuf, const uint8_t* __restrict__ qbuf,
-    const int32_t* __restrict__ poslist, const int32_t* __restrict__ cand,
-    const int32_t* __restrict__ next_hit, const uint32_t* __restrict__ win,
-    const int32_t* __restrict__ dszs, const int32_t* __restrict__ nrs,
-    int32_t* __restrict__ ev, int32_t* __restrict__ nev, int G, int B,
-    int LrP, int LqP, int KaP, int WinP, int evc, bool dsz_per_pair,
-    Cfg c) {
-    const int lane = threadIdx.x % LANES;
-    const int pair = blockIdx.x * WARPS + threadIdx.x / LANES;
-    if (pair >= G * B) return;  // the whole warp
-    const int g = pair / B, b = pair % B;
-    Pair P;
-    P.ref = refbuf + (size_t)g * LrP;
-    P.nr = nrs[g];
-    P.q = qbuf + (size_t)b * LqP;
-    P.dsz = dszs[dsz_per_pair ? pair : b];
-    const int32_t* pos = poslist + (size_t)g * KaP;
-    const Cand cd(cand, pair, LqP);
-    const int32_t* nh = next_hit + (size_t)pair * LqP;
-    const uint32_t* wt = win + (size_t)g * WinP;
-    int32_t* out = ev + (size_t)pair * evc * 8;
+// ---------------------------------------------------------------------------
+// long-genome path: one-byte symbols in device memory
+// ---------------------------------------------------------------------------
 
-    const int dsz = P.dsz;
-    const int limit = dsz - c.msl;  // loop bound: i + msl < dsz
-    const int NS = SAT - c.msl + 1, NL = c.mqd + 1;
-    int i = 0, pred = -dsz, lit_run = 0;
-    int reg_lo = -1, reg_hi = 0, lit_below = 0, ne = 0;
+struct ByteSyms {
+    const uint8_t* ref;  // composite reference buffer (row g)
+    int nr;              // composite length
+    const uint8_t* q;    // query buffer (row b)
+    int dsz;             // query length + mrd
 
-    while (i < limit && ne < evc) {
-        if (pred < 0) {
-            // desynced: no event before the next anchor candidate
-            int j = min(nh[i], limit);
-            lit_run += j - i;
-            i = j;
-            if (i >= limit) break;
+    __device__ __forceinline__ int r(int p) const {
+        return (p >= 0 && p < nr) ? (int)ref[p] : SYM_N_REF;
+    }
+    __device__ __forceinline__ int qs(int p) const {
+        return (p >= 0 && p < dsz) ? (int)q[p] : SYM_N_SEQ;
+    }
+
+    // Longest common extension of ref[rp..] and q[qp..], known equal below
+    // `from` (Parser::match_len), 32 offsets per step.
+    __device__ int lce(int rp, int qp, int from, int lane) const {
+        for (int o = from;; o += LANES) {
+            const unsigned m = __ballot_sync(
+                FULL, r(rp + o + lane) != qs(qp + o + lane));
+            if (m) return o + __ffs(m) - 1;
         }
-        int start, cnt;
-        cd.get(i, start, cnt);
-        int a_len = 0, a_pos = 0;
+    }
+
+    __device__ void anchor(const int32_t* pos, int start, int cnt, int i,
+                           const Cfg& c, int lane, int& a_len, int& a_pos,
+                           long long* pc) {
+        a_len = a_pos = 0;
         for (int k = 0; k < cnt; ++k) {
             const int p = pos[start + k];
-            const int ml = lce(P, p, i, 0, lane);
+            const int ml = lce(p, i, 0, lane);
             if (ml >= c.mal && ml > a_len) {
                 a_len = ml;
                 a_pos = p;
             }
         }
-        int bl = a_len, bp = a_pos;
-        if (pred >= 0) {
-            int s_len = 0, s_pos = 0;
-            const int hi = pred + c.mrd;
-            for (int base = max(0, pred - lit_run); base < hi; base += LANES) {
-                const int p = base + lane;
-                bool hit = p < hi;
-                for (int t = 0; hit && t < c.msl; ++t)
-                    hit = rsym(P, p + t) == qsym(P, i + t);
-                for (unsigned S = __ballot_sync(FULL, hit); S; S &= S - 1) {
-                    const int ps = base + __ffs(S) - 1;
-                    const int ml = lce(P, ps, i, c.msl, lane);
-                    if (ml > s_len ||
-                        (ml == s_len && abs(ps - pred) < abs(s_pos - pred))) {
-                        s_len = ml;
-                        s_pos = ps;
-                    }
+    }
+
+    // each lane checks the msl-prefix at its positions; each survivor, in
+    // ascending position, gets the warp's LCE
+    __device__ void seed(int i, int pred, int lit_run, const Cfg& c,
+                         int lane, int& s_len, int& s_pos, long long* pc) {
+        s_len = s_pos = 0;
+        const int hi = pred + c.mrd;
+        for (int base = max(0, pred - lit_run); base < hi; base += LANES) {
+            const int p = base + lane;
+            bool hit = p < hi;
+            for (int t = 0; hit && t < c.msl; ++t)
+                hit = r(p + t) == qs(i + t);
+            PROBE(++pc[PR_SEED_CHUNKS]);
+            for (unsigned S = __ballot_sync(FULL, hit); S; S &= S - 1) {
+                PROBE(++pc[PR_SEED_HITS]);
+                const int ps = base + __ffs(S) - 1;
+                const int ml = lce(ps, i, c.msl, lane);
+                if (ml > s_len ||
+                    (ml == s_len && abs(ps - pred) < abs(s_pos - pred))) {
+                    s_len = ml;
+                    s_pos = ps;
                 }
             }
+        }
+    }
+
+    // no lookahead over literal steps: each is a step of its own
+    template <class Cand>
+    __device__ __forceinline__ int literal_run(Cand&, int, int, int, int,
+                                               const Cfg&, int) const {
+        return 0;
+    }
+    template <class Cand>
+    __device__ __forceinline__ void prefetch(Cand&, int, int) {}
+
+    template <bool FWD>
+    __device__ __forceinline__ bool miss_at(int dpos, int rpos, int e) const {
+        return FWD ? qs(dpos + e) != r(rpos + e)
+                   : qs(dpos - 1 - e) != r(rpos - 1 - e);
+    }
+
+    // Sliding-window approximate extension: bad(e) = carry + misses
+    // entering in [base, e] - misses leaving, 32 positions per step.
+    template <bool FWD>
+    __device__ int ext(const Cfg& c, int dpos, int rpos, int max_len,
+                       int lane, long long& steps) const {
+        const unsigned le = FULL >> (31 - lane);  // lanes <= this one
+        int carry = 0;             // misses in the window at base-1
+        int lastmiss = -1 - c.ar;  // the virtual run before e = 0
+        int last = 0;
+        unsigned prev = 0;         // miss mask of the last step
+        for (int base = 0; base < max_len; base += LANES) {
+            PROBE(++steps);
+            const int e = base + lane;
+            const bool in = e < max_len;
+            const bool miss = in && miss_at<FWD>(dpos, rpos, e);
+            const unsigned M = __ballot_sync(FULL, miss);
+            unsigned O;  // lanes whose window drops a miss (e - aw)
+            if (c.aw <= LANES) {
+                O = (unsigned)((((unsigned long long)M << LANES) | prev)
+                               >> (LANES - c.aw));
+            } else {
+                O = __ballot_sync(FULL, in && e >= c.aw &&
+                                            miss_at<FWD>(dpos, rpos, e - c.aw));
+            }
+            const int bad = carry + __popc(M & le) - __popc(O & le);
+            const unsigned S = __ballot_sync(FULL, !in || bad > c.am);
+            const unsigned Mle = M & le;
+            const int lm = Mle ? base + top_bit(Mle) : lastmiss;
+            unsigned Q = __ballot_sync(FULL, in && !miss && e - lm >= c.ar);
+            if (S) Q &= (1u << (__ffs(S) - 1)) - 1;  // lanes before the stop
+            if (Q) last = base + top_bit(Q) + 1;
+            if (S) break;
+            carry += __popc(M) - __popc(O);
+            if (M) lastmiss = base + top_bit(M);
+            prev = M;
+        }
+        return last;
+    }
+};
+
+// ---------------------------------------------------------------------------
+// group path: bit-plane words, the reference in shared or device memory
+// ---------------------------------------------------------------------------
+
+// Three planes of 32-symbol words: bit j of word w is symbol 32 w + j
+// (lo = bit 0 of the code, hi = bit 1, nn = N). Words outside [0, nw)
+// read as N.
+struct Planes {
+    const uint32_t* lo;
+    const uint32_t* hi;
+    const uint32_t* nn;
+    int nw;
+};
+
+struct W3 {
+    uint32_t lo, hi, nn;
+};
+
+__device__ __forceinline__ W3 word_at(const Planes& P, int w) {
+    if ((unsigned)w < (unsigned)P.nw) return W3{P.lo[w], P.hi[w], P.nn[w]};
+    return W3{0u, 0u, FULL};
+}
+
+// the 32 symbols [32 w + s, 32 w + s + 32) of words w (a) and w + 1 (b)
+__device__ __forceinline__ W3 join(const W3& a, const W3& b, int s) {
+    return W3{__funnelshift_r(a.lo, b.lo, s), __funnelshift_r(a.hi, b.hi, s),
+              __funnelshift_r(a.nn, b.nn, s)};
+}
+
+// the 32 symbols [p, p + 32) (p may be negative: they read as N)
+__device__ __forceinline__ W3 win32(const Planes& P, int p) {
+    const int w = p >> 5;  // floor
+    return join(word_at(P, w), word_at(P, w + 1), p & 31);
+}
+
+// the 64 symbols [p, p + 64) as two windows
+__device__ __forceinline__ void win64(const Planes& P, int p, W3& a, W3& b) {
+    const int w = p >> 5;
+    const W3 x = word_at(P, w), y = word_at(P, w + 1), z = word_at(P, w + 2);
+    a = join(x, y, p & 31);
+    b = join(y, z, p & 31);
+}
+
+// bit j set where the two windows' symbols j differ or either is N
+__device__ __forceinline__ uint32_t diff(const W3& a, const W3& b) {
+    return (a.lo ^ b.lo) | (a.hi ^ b.hi) | a.nn | b.nn;
+}
+
+// offset of the first mismatch of a window, 32 when all 32 match
+__device__ __forceinline__ int first_miss(uint32_t d) {
+    return d ? __ffs(d) - 1 : LANES;
+}
+
+struct WordSyms {
+    Planes R, Q;
+    int nr, dsz;
+    int q_at = INT_MIN;  // query words q_at, q_at + 1, q_at + 2 ...
+    W3 qa, qb, qc;       // ... held in registers (uniform)
+
+    __device__ WordSyms(const Planes& r, const Planes& q, int nr_, int dsz_)
+        : R(r), Q(q), nr(nr_), dsz(dsz_) {}
+
+    // hold query words w .. w + 2, keeping those already held
+    __device__ __forceinline__ void qload(int w) {
+        if (w == q_at + 1) {
+            qa = qb;
+            qb = qc;
+        } else if (w == q_at + 2) {
+            qa = qc;
+            qb = word_at(Q, w + 1);
+        } else {
+            qa = word_at(Q, w);
+            qb = word_at(Q, w + 1);
+        }
+        qc = word_at(Q, w + 2);
+        q_at = w;
+    }
+
+    // the query's 32 symbols at i
+    __device__ __forceinline__ W3 qwin(int i) {
+        const int w = i >> 5;
+        if (w != q_at && w != q_at + 1) qload(w);
+        return w == q_at ? join(qa, qb, i & 31) : join(qb, qc, i & 31);
+    }
+
+    // the query's 64 symbols at i
+    __device__ __forceinline__ void qwin64(int i, W3& a, W3& b) {
+        const int w = i >> 5;
+        if (w != q_at) qload(w);
+        a = join(qa, qb, i & 31);
+        b = join(qb, qc, i & 31);
+    }
+
+    // LCE of ref[rp..] and q[qp..] from offset `from`: lane l compares the
+    // 32 offsets at o + 32 l, 1,024 offsets a step
+    __device__ __forceinline__ int lce(int rp, int qp, int from,
+                                       int lane) const {
+        for (int o = from;; o += LANES * LANES) {
+            const int ol = o + LANES * lane;
+            const uint32_t d = diff(win32(R, rp + ol), win32(Q, qp + ol));
+            const unsigned m = __ballot_sync(FULL, d != 0);
+            if (m) {
+                const int L = __ffs(m) - 1;
+                return o + LANES * L + first_miss(__shfl_sync(FULL, d, L));
+            }
+        }
+    }
+
+    // steps of an lce() from `from` that returned `len`
+    __device__ __forceinline__ static int lce_steps(int len, int from) {
+        return (len - from) / (LANES * LANES) + 1;
+    }
+
+    // the candidates 32 at a time, one a lane: its first 32 symbols
+    // compared at once, a warp LCE where all 32 match
+    __device__ __forceinline__ void anchor(const int32_t* pos, int start,
+                                           int cnt, int i, const Cfg& c,
+                                           int lane, int& a_len, int& a_pos,
+                                           long long* pc) {
+        a_len = a_pos = 0;
+        if (cnt == 0) return;
+        const W3 qi = qwin(i);
+        for (int k0 = 0; k0 < cnt; k0 += LANES) {
+            PROBE(++pc[PR_ANC_LCE]);
+            const bool valid = k0 + lane < cnt;
+            const int p = valid ? pos[start + k0 + lane] : 0;
+            int ml = valid ? first_miss(diff(win32(R, p), qi)) : 0;
+            for (unsigned L = __ballot_sync(FULL, ml == LANES); L;
+                 L &= L - 1) {
+                const int src = __ffs(L) - 1;
+                const int full = lce(__shfl_sync(FULL, p, src), i, LANES,
+                                     lane);
+                PROBE(pc[PR_ANC_LCE] += lce_steps(full, LANES));
+                if (lane == src) ml = full;
+            }
+            const bool ok = valid && ml >= c.mal;
+            const int best = __reduce_max_sync(FULL, ok ? ml : 0);
+            if (best > a_len) {  // a later chunk wins only when longer
+                const int src =
+                    __ffs(__ballot_sync(FULL, ok && ml == best)) - 1;
+                a_len = best;
+                a_pos = __shfl_sync(FULL, p, src);
+            }
+        }
+    }
+
+    // start loading the candidate and query words at i (an event's end,
+    // where the parse resumes after its extension)
+    __device__ __forceinline__ void prefetch(PackedCand& cd, int i,
+                                             int lane) {
+        cd.load(i, lane);
+        qload(i >> 5);
+    }
+
+    // How many of the steps i, i + 1, ... (at most kmax) are literal steps
+    // of the synced state: no anchor candidate at i + j, and no seed hit in
+    // step j's window [lo, pred + j + mrd) against the query at i + j. On
+    // the diagonal dd = p - i a hit at step j is a run of msl matches from
+    // bit j of the diagonal's 64-position mismatch mask; lane l takes the
+    // diagonals l, l + 32, ... and one reduction gives the first hit.
+    __device__ __forceinline__ int literal_run(PackedCand& cd, int i,
+                                               int pred, int lit_run,
+                                               int kmax, const Cfg& c,
+                                               int lane) {
+        W3 q0, q1;  // (its loads overlap the candidate words')
+        qwin64(i, q0, q1);
+        const int k = cd.first_with(i, min(kmax, LANES), lane);
+        if (k == 0) return 0;
+        const int lo = max(0, pred - lit_run);
+        const int d_hi = pred + c.mrd - i;  // p - i stays below it
+        int first = k;
+        for (int d0 = lo - i - (k - 1); d0 < d_hi; d0 += LANES) {
+            const int p = i + d0 + lane;  // the diagonal's position at step 0
+            W3 r0, r1;
+            win64(R, p, r0, r1);
+            const uint64_t h =
+                runs(~((uint64_t)diff(r1, q1) << LANES | diff(r0, q0)),
+                     c.msl)
+                & ~0ull << max(0, lo - p);  // steps whose window holds p
+            if (p - i < d_hi && h) first = min(first, __ffsll(h) - 1);
+        }
+        return __reduce_min_sync(FULL, first);
+    }
+
+    // bit j set where bits j .. j + n - 1 of `ones` are (1 <= n < 32)
+    __device__ __forceinline__ static uint64_t runs(uint64_t ones, int n) {
+        uint64_t r = ~0ull, h = ones;  // h: runs of 2^b
+        int off = 0;
+#pragma unroll
+        for (int b = 0; b < 5; ++b) {
+            if (n >> b & 1) {
+                r &= h >> off;
+                off += 1 << b;
+            }
+            h &= h >> (1 << b);
+        }
+        return r;
+    }
+
+    // the window in passes of SEED_CHUNKS x 32 positions: each lane
+    // compares its positions' windows with the query's at once (the
+    // msl-prefix is a mask), one vote a pass; on a hit it keeps its best by
+    // (length desc, |p - pred| asc, p asc), and one warp reduction at the
+    // end picks the winner
+    __device__ __forceinline__ void seed(int i, int pred, int lit_run,
+                                         const Cfg& c, int lane, int& s_len,
+                                         int& s_pos, long long* pc) {
+        const W3 qi = qwin(i);
+        const uint32_t pre = (1u << c.msl) - 1;  // msl <= SAT < 32
+        const int hi = pred + c.mrd;
+        int b_len = 0, b_dist = INT_MAX, b_pos = INT_MAX;
+        bool found = false;
+        for (int base = max(0, pred - lit_run); base < hi;
+             base += SEED_CHUNKS * LANES) {
+            PROBE(++pc[PR_SEED_CHUNKS]);
+            PROBE(pc[PR_SEED_LOADS] += SEED_CHUNKS);
+            int ml[SEED_CHUNKS];
+            bool hit[SEED_CHUNKS], any = false;
+#pragma unroll
+            for (int u = 0; u < SEED_CHUNKS; ++u) {
+                const int p = base + u * LANES + lane;
+                const uint32_t d = diff(win32(R, p), qi);
+                hit[u] = p < hi && (d & pre) == 0;
+                ml[u] = hit[u] ? first_miss(d) : 0;
+                any |= hit[u];
+            }
+            if (!__any_sync(FULL, any)) continue;
+            found = true;
+#pragma unroll
+            for (int u = 0; u < SEED_CHUNKS; ++u) {
+                PROBE(pc[PR_SEED_HITS] += __popc(__ballot_sync(FULL, hit[u])));
+                const int p0 = base + u * LANES;
+                for (unsigned L = __ballot_sync(FULL, ml[u] == LANES); L;
+                     L &= L - 1) {
+                    const int src = __ffs(L) - 1;
+                    const int full = lce(p0 + src, i, LANES, lane);
+                    PROBE(pc[PR_SEED_LCE] += lce_steps(full, LANES));
+                    if (lane == src) ml[u] = full;
+                }
+                const int dist = abs(p0 + lane - pred);
+                if (hit[u] && (ml[u] > b_len ||
+                               (ml[u] == b_len && dist < b_dist))) {
+                    b_len = ml[u];
+                    b_dist = dist;
+                    b_pos = p0 + lane;
+                }
+            }
+        }
+        s_len = s_pos = 0;
+        if (!found) return;
+        s_len = __reduce_max_sync(FULL, b_len);
+        const int dist =
+            __reduce_min_sync(FULL, b_len == s_len ? b_dist : INT_MAX);
+        s_pos = __reduce_min_sync(
+            FULL, b_len == s_len && b_dist == dist ? b_pos : INT_MAX);
+    }
+
+    // mismatch mask of scan offsets [e0, e0 + 32): bit j is offset e0 + j
+    template <bool FWD>
+    __device__ __forceinline__ unsigned miss_word(int dpos, int rpos,
+                                                  int e0) const {
+        if (FWD) return diff(win32(Q, dpos + e0), win32(R, rpos + e0));
+        // offset e reads position dpos - 1 - e: the window ending there,
+        // reversed
+        return __brev(diff(win32(Q, dpos - e0 - LANES),
+                           win32(R, rpos - e0 - LANES)));
+    }
+
+    // ByteSyms::ext with each step's mismatch mask from one word compare
+    template <bool FWD>
+    __device__ __forceinline__ int ext(const Cfg& c, int dpos, int rpos,
+                                       int max_len, int lane,
+                                       long long& steps) const {
+        const unsigned le = FULL >> (31 - lane);
+        int carry = 0, lastmiss = -1 - c.ar, last = 0;
+        unsigned prev = 0;
+        for (int base = 0; base < max_len; base += LANES) {
+            PROBE(++steps);
+            const int left = max_len - base;
+            const unsigned inm = left >= LANES ? FULL : (1u << left) - 1;
+            const unsigned M = miss_word<FWD>(dpos, rpos, base) & inm;
+            unsigned O;
+            if (c.aw <= LANES) {
+                O = (unsigned)((((unsigned long long)M << LANES) | prev)
+                               >> (LANES - c.aw));
+            } else {  // offsets e >= aw drop the miss at e - aw
+                const int sh = c.aw - base;
+                const unsigned ge =
+                    sh <= 0 ? FULL : sh >= LANES ? 0u : FULL << sh;
+                O = miss_word<FWD>(dpos, rpos, base - c.aw) & inm & ge;
+            }
+            const bool in = (inm >> lane) & 1u;
+            const bool miss = (M >> lane) & 1u;
+            const int bad = carry + __popc(M & le) - __popc(O & le);
+            const unsigned S = __ballot_sync(FULL, !in || bad > c.am);
+            const unsigned Mle = M & le;
+            const int lm = Mle ? base + top_bit(Mle) : lastmiss;
+            unsigned Q = __ballot_sync(FULL,
+                                       in && !miss && base + lane - lm >= c.ar);
+            if (S) Q &= (1u << (__ffs(S) - 1)) - 1;
+            if (Q) last = base + top_bit(Q) + 1;
+            if (S) break;
+            carry += __popc(M) - __popc(O);
+            if (M) lastmiss = base + top_bit(M);
+            prev = M;
+        }
+        return last;
+    }
+};
+
+// ---------------------------------------------------------------------------
+// the automaton of one pair (a warp)
+// ---------------------------------------------------------------------------
+
+template <class Syms, class Cand>
+__device__ void parse_pair(Syms& S, Cand& cd, const int32_t* __restrict__ pos,
+                           const int32_t* __restrict__ nh,
+                           const uint32_t* __restrict__ wt,
+                           int32_t* __restrict__ out,
+                           int32_t* __restrict__ nev_out, int evc,
+                           const Cfg& c, int lane,
+                           long long* __restrict__ probe) {
+    const int dsz = S.dsz;
+    const int limit = dsz - c.msl;  // loop bound: i + msl < dsz
+    const int NS = SAT - c.msl + 1, NL = c.mqd + 1;
+    int i = 0, pred = -dsz, lit_run = 0;
+    int reg_lo = -1, reg_hi = 0, lit_below = 0, ne = 0;
+    long long pc[NPROBE] = {};
+    PROBE(const long long t_start = clock64());
+    PROBE(long long t0 = 0);
+
+    while (i < limit && ne < evc) {
+        PROBE(++pc[PR_STEPS]);
+        if (pred < 0) {
+            // desynced: no event before the next anchor candidate
+            PROBE(++pc[PR_JUMPS]);
+            PROBE(t0 = clock64());
+            const int j = min(nh[i], limit);
+            lit_run += j - i;
+            i = j;
+            PROBE(pc[PR_CYC_JUMP] += clock64() - t0);
+            if (i >= limit) break;
+        } else {
+            // synced: a run of literal steps at once (they desync once
+            // lit_run exceeds mqd)
+            PROBE(t0 = clock64());
+            const int k = S.literal_run(cd, i, pred, lit_run,
+                                        min(c.mqd + 1 - lit_run, limit - i),
+                                        c, lane);
+            PROBE(pc[PR_CYC_RUN] += clock64() - t0);
+            if (k > 0) {
+                PROBE(pc[PR_SKIPPED] += k);
+                i += k;
+                pred += k;
+                lit_run += k;
+                if (lit_run > c.mqd) pred = -dsz;
+                continue;
+            }
+        }
+        PROBE(t0 = clock64());
+        int start, cnt;
+        cd.get(i, start, cnt, lane);
+        PROBE(pc[PR_ANC_CAND] += cnt);
+        int a_len, a_pos;
+        S.anchor(pos, start, cnt, i, c, lane, a_len, a_pos, pc);
+        PROBE(pc[PR_CYC_ANC] += clock64() - t0);
+        int bl = a_len, bp = a_pos;
+        if (pred >= 0) {
+            PROBE(++pc[PR_SYNCED]);
+            PROBE(t0 = clock64());
+            int s_len, s_pos;
+            S.seed(i, pred, lit_run, c, lane, s_len, s_pos, pc);
+            PROBE(pc[PR_CYC_SEED] += clock64() - t0);
             bl = s_len;
             bp = s_pos;
             if (a_pos != 0) {
@@ -283,6 +705,7 @@ __global__ void __launch_bounds__(WARPS * LANES) parse_events_kernel(
             }
         }
         if (bl >= c.msl) {
+            PROBE(t0 = clock64());
             const bool close = pred >= 0 && abs(bp - pred) <= c.mrd;
             int bwd = 0, tl = 0;
             if (!close) {
@@ -290,12 +713,16 @@ __global__ void __launch_bounds__(WARPS * LANES) parse_events_kernel(
                 const bool kill = reg_lo >= 0 && reg_hi - reg_lo < c.reg;
                 tl = kill ? (i - reg_lo) + lit_below : lit_run;
                 if (tl > 0)
-                    bwd = ext_scan<false>(P, c, i, bp, min(min(i, bp), tl),
-                                          lane);
+                    bwd = S.template ext<false>(c, i, bp,
+                                                min(min(i, bp), tl), lane,
+                                                pc[PR_EXT_BWD]);
             }
             const int i2 = i + bl, pred2 = bp + bl;
-            const int ext = ext_scan<true>(P, c, i2, pred2,
-                                           min(dsz - i2, P.nr - pred2), lane);
+            S.prefetch(cd, i2, lane);
+            const int ext = S.template ext<true>(
+                c, i2, pred2, min(dsz - i2, S.nr - pred2), lane,
+                pc[PR_EXT_FWD]);
+            PROBE(pc[PR_CYC_EXT] += clock64() - t0);
             if (lane < 8) {
                 const int v = lane == 0 ? i : lane == 1 ? bp : lane == 2 ? bl
                             : lane == 3 ? bwd : lane == 4 ? ext : 0;
@@ -311,49 +738,239 @@ __global__ void __launch_bounds__(WARPS * LANES) parse_events_kernel(
             lit_run = 0;
             reg_hi = i;
         } else {
+            PROBE(if (pred >= 0) ++pc[PR_SYNCED_LIT]);
             ++i;
             if (pred >= 0) ++pred;
             ++lit_run;
             if (lit_run > c.mqd) pred = -dsz;
         }
     }
-    if (lane == 0) nev[pair] = i < limit ? -1 : ne;
+    if (lane == 0) *nev_out = i < limit ? -1 : ne;
+#ifdef LZT_PROBE
+    pc[PR_SPAN] = clock64() - t_start;
+    pc[PR_EVENTS] = ne;
+    if (probe && lane == 0) {
+#pragma unroll
+        for (int f = 0; f < NPROBE; ++f) probe[f] = pc[f];  // registers
+    }
+#endif
 }
 
-template <class Cand>
-int launch(const void* refbuf, const void* qbuf, const void* poslist,
-           const void* cand, const void* next_hit, const void* win,
-           const void* dszs, const void* nrs, void* ev, void* nev, int G,
-           int B, int LrP, int LqP, int KaP, int WinP, int evc,
-           bool dsz_per_pair, const Cfg& c, void* stream) {
-    const int n = G * B;
-    if (n > 0) {
-        parse_events_kernel<Cand>
-            <<<(n + WARPS - 1) / WARPS, WARPS * LANES, 0,
-               (cudaStream_t)stream>>>(
-            (const uint8_t*)refbuf, (const uint8_t*)qbuf,
-            (const int32_t*)poslist, (const int32_t*)cand,
-            (const int32_t*)next_hit, (const uint32_t*)win,
-            (const int32_t*)dszs, (const int32_t*)nrs, (int32_t*)ev,
-            (int32_t*)nev, G, B, LrP, LqP, KaP, WinP, evc, dsz_per_pair, c);
+// ---------------------------------------------------------------------------
+// kernels
+// ---------------------------------------------------------------------------
+
+// Bit planes of a (rows, L) symbol buffer, one warp per 32-symbol word:
+// (rows, 3, L / 32) words, a code >= 4 or a position at or past the row's
+// length read as N.
+__global__ void pack_planes_kernel(const uint8_t* __restrict__ buf,
+                                   const int32_t* __restrict__ lens,
+                                   int rows, int L,
+                                   uint32_t* __restrict__ planes) {
+    const int lane = threadIdx.x % LANES;
+    const int nw = L / LANES;
+    const long long total = (long long)rows * nw;
+    const long long step = (long long)gridDim.x * blockDim.x / LANES;
+    for (long long t = (blockIdx.x * (long long)blockDim.x + threadIdx.x)
+                       / LANES;
+         t < total; t += step) {
+        const int row = (int)(t / nw), w = (int)(t % nw);
+        const int p = w * LANES + lane;
+        const int s = buf[(size_t)row * L + p];
+        const bool n = p >= lens[row] || s >= SYM_N_REF;
+        const unsigned lo = __ballot_sync(FULL, !n && (s & 1));
+        const unsigned hi = __ballot_sync(FULL, !n && (s & 2));
+        const unsigned nn = __ballot_sync(FULL, n);
+        uint32_t* o = planes + (size_t)row * 3 * nw + w;
+        if (lane == 0) o[0] = lo;
+        if (lane == 1) o[nw] = hi;
+        if (lane == 2) o[2 * (size_t)nw] = nn;
     }
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+    const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+    const size_t s = __cvta_generic_to_global(src);
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+                 "l"(s)
+                 : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Group path. Grid (slices, G): block (s, g) serves reference g; its warps
+// take queries order[k] from the counter next_q[g]. SMEM: the reference's
+// planes (rows of RW words) are copied into shared memory first.
+template <bool SMEM>
+__global__ void __launch_bounds__(MAX_WARPS * LANES) parse_group_kernel(
+    const uint32_t* __restrict__ rpl, const uint32_t* __restrict__ qpl,
+    const int32_t* __restrict__ poslist, const int32_t* __restrict__ cand,
+    const int32_t* __restrict__ next_hit, const uint32_t* __restrict__ win,
+    const int32_t* __restrict__ dszs, const int32_t* __restrict__ nrs,
+    const int32_t* __restrict__ order, int32_t* __restrict__ next_q,
+    int32_t* __restrict__ ev, int32_t* __restrict__ nev, int B, int RW,
+    int QW, int LqP, int KaP, int WinP, int evc, Cfg c,
+    long long* __restrict__ probe) {
+    extern __shared__ __align__(16) uint32_t smem[];
+    const int lane = threadIdx.x % LANES;
+    const int g = blockIdx.y;
+    const int nr = nrs[g];
+    const uint32_t* rg = rpl + (size_t)g * 3 * RW;
+    Planes R{rg, rg + RW, rg + 2 * (size_t)RW, RW};
+    if constexpr (SMEM) {
+        // the words that hold [0, nr) and the one after; later words read
+        // as N through Planes::nw
+        const int nw = min(RW, (nr >> 5) + 2);
+        const int n16 = (nw + 3) >> 2;  // 16-byte chunks a plane
+        for (int t = threadIdx.x; t < 3 * n16; t += blockDim.x) {
+            const int pl = t / n16, k = 4 * (t % n16);
+            cp_async16(smem + (size_t)pl * RW + k, rg + (size_t)pl * RW + k);
+        }
+        cp_async_wait_all();
+        __syncthreads();
+        R = Planes{smem, smem + RW, smem + 2 * (size_t)RW, nw};
+    }
+    for (;;) {
+        int k = 0;
+        if (lane == 0) k = atomicAdd(next_q + g, 1);
+        k = __shfl_sync(FULL, k, 0);
+        if (k >= B) break;  // the whole warp
+        const int b = order[k];
+        const size_t pair = (size_t)g * B + b;
+        const uint32_t* qb = qpl + (size_t)b * 3 * QW;
+        WordSyms S(R, Planes{qb, qb + QW, qb + 2 * (size_t)QW, QW}, nr,
+                   dszs[b]);
+        PackedCand cd(cand + pair * LqP, LqP);
+        parse_pair(S, cd, poslist + (size_t)g * KaP, next_hit + pair * LqP,
+                   win + (size_t)g * WinP, ev + pair * evc * 8, nev + pair,
+                   evc, c, lane, probe ? probe + pair * NPROBE : nullptr);
+    }
+}
+
+// Long-genome path: one warp per pair in pair order, dszs (G, B).
+__global__ void __launch_bounds__(WARPS_BIG * LANES) parse_big_kernel(
+    const uint8_t* __restrict__ refbuf, const uint8_t* __restrict__ qbuf,
+    const int32_t* __restrict__ poslist, const int32_t* __restrict__ cand,
+    const int32_t* __restrict__ next_hit, const uint32_t* __restrict__ win,
+    const int32_t* __restrict__ dszs, const int32_t* __restrict__ nrs,
+    int32_t* __restrict__ ev, int32_t* __restrict__ nev, int G, int B,
+    int LrP, int LqP, int KaP, int WinP, int evc, Cfg c) {
+    const int lane = threadIdx.x % LANES;
+    const int pair = blockIdx.x * WARPS_BIG + threadIdx.x / LANES;
+    if (pair >= G * B) return;  // the whole warp
+    const int g = pair / B, b = pair % B;
+    ByteSyms S{refbuf + (size_t)g * LrP, nrs[g], qbuf + (size_t)b * LqP,
+               dszs[pair]};
+    TwoPlaneCand cd(cand, pair, LqP);
+    parse_pair(S, cd, poslist + (size_t)g * KaP,
+               next_hit + (size_t)pair * LqP, win + (size_t)g * WinP,
+               ev + (size_t)pair * evc * 8, nev + pair, evc, c, lane,
+               nullptr);
+}
+
+int pack_planes(const void* buf, const void* lens, int rows, int L,
+                void* planes, cudaStream_t st) {
+    const long long words = (long long)rows * (L / LANES);
+    const int threads = 256;
+    const long long want = (words * LANES + threads - 1) / threads;
+    const int blocks = (int)(want < 4096 ? want : 4096);
+    if (blocks > 0)
+        pack_planes_kernel<<<blocks, threads, 0, st>>>(
+            (const uint8_t*)buf, (const int32_t*)lens, rows, L,
+            (uint32_t*)planes);
     return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Group path: cand (G, B, LqP) packed, dszs (B,).
+// Version of the C interface below (dispatch_probe.py --baseline reads it
+// to call an older checkout's build).
+extern "C" int lzt_parse_abi() { return 2; }
+
+// int64 fields a pair of the probe build's counts (ops/parse_kernel.py
+// checks it against its field names when it loads the library).
+extern "C" int lzt_parse_nprobe() { return NPROBE; }
+
+// Dynamic shared memory (bytes) a block of the group kernel may take on
+// the current device: the opt-in limit less the kernel's static shared
+// memory, or -1 on an error.
+extern "C" int lzt_parse_smem_max() {
+    int dev = 0, optin = 0;
+    cudaFuncAttributes fa;
+    int rc = (int)cudaGetDevice(&dev);
+    if (rc == 0)
+        rc = (int)cudaDeviceGetAttribute(
+            &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (rc == 0) rc = (int)cudaFuncGetAttributes(&fa, parse_group_kernel<true>);
+    return rc == 0 ? optin - (int)fa.sharedSizeBytes : -1;
+}
+
+// Group path: cand (G, B, LqP) packed, dszs (B,). Scratch from the caller:
+// rpl (G, 3, LrP / 32) and qpl (B, 3, LqP / 32) uint32 plane words, order
+// (B,) the queries longest first, next_q (G,) zeroed counters. The launch:
+// `warps` warps a block, `slices` blocks a reference, the reference's
+// planes in `smem` bytes of shared memory (0: read from device memory).
+// probe (G, B, NPROBE) int64 is written by the probe build only.
 extern "C" int lzt_parse_events(
     const void* refbuf, const void* qbuf, const void* poslist,
     const void* cand, const void* next_hit, const void* win,
     const void* dszs, const void* nrs, void* ev, void* nev, int G, int B,
     int LrP, int LqP, int KaP, int WinP, int evc, int mal, int msl, int mrd,
-    int mqd, int reg, int aw, int am, int ar, void* stream) {
-    return launch<PackedCand>(refbuf, qbuf, poslist, cand, next_hit, win,
-                              dszs, nrs, ev, nev, G, B, LrP, LqP, KaP, WinP,
-                              evc, false,
-                              Cfg{mal, msl, mrd, mqd, reg, aw, am, ar},
-                              stream);
+    int mqd, int reg, int aw, int am, int ar, void* stream, void* probe,
+    void* rpl, void* qpl, const void* order, void* next_q, int smem,
+    int warps, int slices) {
+    if (G * B == 0) return 0;
+    cudaStream_t st = (cudaStream_t)stream;
+    int rc = pack_planes(refbuf, nrs, G, LrP, rpl, st);
+    if (rc == 0) rc = pack_planes(qbuf, dszs, B, LqP, qpl, st);
+    if (rc != 0) return rc;
+    const Cfg c{mal, msl, mrd, mqd, reg, aw, am, ar};
+    const dim3 grid(slices, G);
+    const int threads = warps * LANES;
+    const int RW = LrP / LANES, QW = LqP / LANES;
+    if (smem > 0) {
+        rc = (int)cudaFuncSetAttribute(
+            parse_group_kernel<true>,
+            cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        if (rc != 0) return rc;
+        parse_group_kernel<true><<<grid, threads, smem, st>>>(
+            (const uint32_t*)rpl, (const uint32_t*)qpl,
+            (const int32_t*)poslist, (const int32_t*)cand,
+            (const int32_t*)next_hit, (const uint32_t*)win,
+            (const int32_t*)dszs, (const int32_t*)nrs, (const int32_t*)order,
+            (int32_t*)next_q, (int32_t*)ev, (int32_t*)nev, B, RW, QW, LqP,
+            KaP, WinP, evc, c, (long long*)probe);
+    } else {
+        parse_group_kernel<false><<<grid, threads, 0, st>>>(
+            (const uint32_t*)rpl, (const uint32_t*)qpl,
+            (const int32_t*)poslist, (const int32_t*)cand,
+            (const int32_t*)next_hit, (const uint32_t*)win,
+            (const int32_t*)dszs, (const int32_t*)nrs, (const int32_t*)order,
+            (int32_t*)next_q, (int32_t*)ev, (int32_t*)nev, B, RW, QW, LqP,
+            KaP, WinP, evc, c, (long long*)probe);
+    }
+    return (int)cudaGetLastError();
+}
+
+// Blocks of `warps` warps that one SM holds at once for the group kernel
+// with `smem` bytes of shared memory (0: the device-memory
+// instantiation), or -1 on an error.
+extern "C" int lzt_parse_occupancy(int smem, int warps) {
+    int n = 0, rc;
+    if (smem > 0) {
+        rc = (int)cudaFuncSetAttribute(
+            parse_group_kernel<true>,
+            cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        if (rc == 0)
+            rc = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                &n, parse_group_kernel<true>, warps * LANES, smem);
+    } else {
+        rc = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &n, parse_group_kernel<false>, warps * LANES, 0);
+    }
+    return rc == 0 ? n : -1;
 }
 
 // Long-genome path: cand (G, B, 2, LqP) two planes, dszs (G, B).
@@ -363,9 +980,16 @@ extern "C" int lzt_parse_events_big(
     const void* dszs, const void* nrs, void* ev, void* nev, int G, int B,
     int LrP, int LqP, int KaP, int WinP, int evc, int mal, int msl, int mrd,
     int mqd, int reg, int aw, int am, int ar, void* stream) {
-    return launch<TwoPlaneCand>(refbuf, qbuf, poslist, cand, next_hit, win,
-                                dszs, nrs, ev, nev, G, B, LrP, LqP, KaP,
-                                WinP, evc, true,
-                                Cfg{mal, msl, mrd, mqd, reg, aw, am, ar},
-                                stream);
+    const int n = G * B;
+    if (n > 0) {
+        parse_big_kernel<<<(n + WARPS_BIG - 1) / WARPS_BIG,
+                           WARPS_BIG * LANES, 0, (cudaStream_t)stream>>>(
+            (const uint8_t*)refbuf, (const uint8_t*)qbuf,
+            (const int32_t*)poslist, (const int32_t*)cand,
+            (const int32_t*)next_hit, (const uint32_t*)win,
+            (const int32_t*)dszs, (const int32_t*)nrs, (int32_t*)ev,
+            (int32_t*)nev, G, B, LrP, LqP, KaP, WinP, evc,
+            Cfg{mal, msl, mrd, mqd, reg, aw, am, ar});
+    }
+    return (int)cudaGetLastError();
 }

@@ -2,21 +2,47 @@
 launch, on the smoke sets of ``chip_smoke.py``.
 
     python -m lzani_tpu_torch.dispatch_probe [--n 256] [--seed 2024] \\
-        [--baseline OTHER_CHECKOUT] [--skip-profile]
+        [--baseline OTHER_CHECKOUT] [--skip-profile] [--timing] \\
+        [--probe [--save F]]
 
 Prints, each line beside the card's name and power limit:
+  - with ``--timing``, first the G = 4 x B = 256 group dispatch of
+    ``chip_smoke.py`` phase 3 launched in series, each launch timed alone
+    (CUDA events), with the allocator's new device-memory segments and
+    the SM clock before and after each series: after a first launch whose
+    output is held, then 10 more, after 20 s idle, after emptying the
+    allocator's cache (with and without that output held), and through
+    the device-memory instantiation;
+  - with ``--probe``, first the probe build of the group kernel
+    (``-DLZT_PROBE``, its own build key) on the G = 4 x B = 256 group
+    dispatch of ``chip_smoke.py`` phase 3 and on the automaton backend's
+    launch of reference row 0 (G = 1 x 255 queries sorted by length):
+    the ten pairs with the longest warp span (``clock64()``), each with
+    its counts by kind of step (desync jumps, anchor candidates and their
+    LCE steps, synced and synced literal steps, seed-window chunks,
+    prefix loads, survivors and their LCE steps, extension steps back and
+    forward, events) and the cycles spent in the anchor search, the seed
+    window and the extensions; the logs equal the plain build's; `--save`
+    writes every pair's counts (numpy .npz);
+  - ptxas's registers, shared memory and spills of each kernel;
   - kernel ms of one group dispatch at G = 4 / 8 / 16 references x B =
     256 queries, and at B = 64 / 128 / 256 queries for G = 4 (CUDA
-    events, the mean of 3 launches after a warm-up);
+    events, the mean of 3 launches after a warm-up), of the automaton
+    backend's row launch (1 x 255) and of ``chip_smoke.py`` phase 10's
+    batch (1 x 64), each with its launch plan (shared or device memory,
+    warps a block, blocks a reference, the blocks an SM holds); and of
+    the G = 4 x 256 dispatch through the device-memory instantiation,
+    whose logs must equal the shared-memory one's;
   - the three pairs of the G = 4, B = 256 dispatch that log the most
     events, each launched alone (G = B = 1);
   - kernel ms of the first long-genome launch of ``synth.bacterial_set``
     at the tuned parameters (G_big x B_big as ``all2all_cuda`` sizes it);
   - kernel ms and bound of a group dispatch at LqP = 2^19 (two 261 kb
     genomes: the query bucket where the JAX engine leaves its v7 kernel);
-  - with ``--baseline``, the G = 4 x B = 256 dispatch and the bacterial
-    launch also through the other checkout's ``csrc/parse_events.cu`` (same
-    C interface), in turns (baseline, this, this, baseline) on the same
+  - with ``--baseline``, the G = 4 x B = 256 dispatch, the row launch,
+    the batch and the bacterial launch also through the other checkout's
+    ``csrc/parse_events.cu`` (its group entry with or without the plane
+    scratch), in turns (baseline, this, this, baseline) on the same
     inputs; both must give the same logs;
   - unless ``--skip-profile``, ``all2all_cuda`` on the first 48 genomes
     under ``torch.profiler``: the parse kernel's share of device time, and
@@ -26,6 +52,7 @@ Prints, each line beside the card's name and power limit:
 from __future__ import annotations
 
 import argparse
+import ctypes
 import os
 import time
 
@@ -37,35 +64,149 @@ from .ops import build
 from .ops import cuda_engine as ce
 from .ops import parse_kernel as pk
 from .params import Params
-from .utils.runinfo import card_name_and_power, launch_bound_ms
+from .utils.runinfo import (card_name_and_power, launch_bound_ms,
+                            ptxas_lines, sm_clock_mhz)
 
 
 def _other_kernels(tree):
-    """The parse kernels of another checkout's csrc/parse_events.cu (the
-    same C interface), built and loaded under their own name."""
+    """(library, C interface version) of the parse kernels of another
+    checkout's csrc/parse_events.cu, built and loaded under their own
+    name, its entries' argument types set: version 2 (``lzt_parse_abi``)
+    is this tree's; 1 (no ``lzt_parse_abi``: the one-warp-per-pair
+    kernel) has a group entry without the plane scratch."""
     lib = build.load_library("parse_events_baseline", [os.path.join(
         tree, "lzani_tpu_torch", "csrc", "parse_events.cu")])
-    ours = pk.load()
-    for entry in ("lzt_parse_events", "lzt_parse_events_big"):
-        fn, like = getattr(lib, entry), getattr(ours, entry)
-        fn.argtypes, fn.restype = like.argtypes, like.restype
-    return lib
+    abi = lib.lzt_parse_abi() if hasattr(lib, "lzt_parse_abi") else 1
+    if abi not in (1, 2):
+        raise ValueError(f"{tree}: unknown parse kernel interface {abi}")
+    head = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 15 + [ctypes.c_void_p]
+    lib.lzt_parse_events.argtypes = head + (
+        [] if abi == 1 else [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3)
+    lib.lzt_parse_events_big.argtypes = head
+    lib.lzt_parse_events.restype = ctypes.c_int
+    lib.lzt_parse_events_big.restype = ctypes.c_int
+    return lib, abi
 
 
-def _kernel_ms(entry, args, reps=3, lib=None):
+def _launch_abi1(fn, refbuf, qbuf, poslist, cand, next_hit, win, dsz, nrs,
+                 cfg, ev_cap):
+    """(ev, nev) of one launch of a version-1 group entry (no scratch) on
+    the current stream; raises when the launch is refused."""
+    G, LrP = refbuf.shape
+    B, LqP = qbuf.shape
+    evc = ev_cap + 1
+    ev = torch.empty((G, B, evc, 8), dtype=torch.int32, device=refbuf.device)
+    nev = torch.empty((G, B), dtype=torch.int32, device=refbuf.device)
+    rc = fn(refbuf.data_ptr(), qbuf.data_ptr(), poslist.data_ptr(),
+            cand.data_ptr(), next_hit.data_ptr(), win.data_ptr(),
+            dsz.data_ptr(), nrs.data_ptr(), ev.data_ptr(), nev.data_ptr(),
+            G, B, LrP, LqP, poslist.shape[1], win.shape[1], evc, cfg.mal,
+            cfg.msl, cfg.mrd, cfg.mqd, cfg.reg, cfg.aw, cfg.am, cfg.ar,
+            torch.cuda.current_stream(refbuf.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"baseline lzt_parse_events: kernel launch failed "
+                           f"(cudaError {rc})")
+    return ev, nev
+
+
+def _kernel_ms(entry, args, reps=3, base=None, smem_max=None):
     """(mean kernel ms of `reps` launches after a warm-up, warm-up output)
-    of the C entry `entry` of `lib` (default: this package's build)."""
-    fn = getattr(lib or pk.load(), entry)
-    out = pk._launch(entry, fn, *args)
+    of the C entry `entry` of this package's build, or of `base`
+    (``_other_kernels``); `smem_max` as ``parse_kernel.parse_events``."""
+    lib, abi = base or (pk.load(), 2)
+    fn = getattr(lib, entry)
+    group = entry == "lzt_parse_events"
+
+    def launch():
+        if group and abi == 1:
+            return _launch_abi1(fn, *args)
+        return pk._launch(entry, fn, *args, group=group,
+                          smem_max=smem_max)[:2]
+
+    out = launch()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
     start.record()
     for _ in range(reps):
-        pk._launch(entry, fn, *args)
+        launch()
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps, out
+
+
+def _probe(tag, args, smi, save, key):
+    """The probe build on one launch: the ten pairs of longest span with
+    their counts; its logs must equal the plain build's."""
+    G, B = args[3].shape[:2]
+    *out, probe = pk.parse_events_probe(*args)
+    ref = pk._launch("lzt_parse_events", pk.load().lzt_parse_events,
+                     *args)[:2]
+    torch.cuda.synchronize()
+    if not _same_logs(out, ref):
+        raise AssertionError(f"{tag}: the probe build's logs differ")
+    pr = probe.cpu().numpy().reshape(G * B, pk.NPROBE)
+    save[key] = pr
+    clk = "{} / {} MHz".format(*sm_clock_mhz())
+    f = {n: j for j, n in enumerate(pk.PROBE_FIELDS)}
+    tot = pr.sum(0)
+    print(f"probe {tag}: {G * B} pairs, spans max {pr[:, 0].max()} / median "
+          f"{int(np.median(pr[:, 0]))} cycles (SM clock now, max: {clk}); "
+          f"totals " + ", ".join(f"{n} {tot[j]}" for n, j in f.items()
+                                 if n != "span") + f" [{smi}]", flush=True)
+    for flat in np.argsort(pr[:, 0])[::-1][:10]:
+        g, b = divmod(int(flat), B)
+        row = pr[flat]
+        span = max(int(row[0]), 1)
+        print(f"  pair (g {g}, b {b}) dsz {int(args[6][b])}: "
+              + ", ".join(f"{n} {row[j]}" for n, j in f.items())
+              + f"; share anc {row[f['cyc_anc']] / span:.3f}, seed "
+              f"{row[f['cyc_seed']] / span:.3f}, ext "
+              f"{row[f['cyc_ext']] / span:.3f}", flush=True)
+
+
+def _series(tag, args, n, smi, smem_max=None):
+    """`n` group launches back to back, each timed alone (CUDA events),
+    with the device-memory segments the caching allocator took for them
+    and the SM clock before and after."""
+    def segments():
+        return torch.cuda.memory_stats().get("segment.all.allocated", 0)
+
+    c0 = sm_clock_mhz()[0]
+    torch.cuda.synchronize()
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(n + 1)]
+    s0 = segments()
+    marks[0].record()
+    for j in range(n):
+        pk.parse_events(*args, smem_max=smem_max)
+        marks[j + 1].record()
+    s1 = segments()
+    torch.cuda.synchronize()
+    ts = [marks[j].elapsed_time(marks[j + 1]) for j in range(n)]
+    print(f"{tag}: " + ", ".join(f"{t:.3f}" for t in ts) + f" ms (mean "
+          f"{sum(ts) / n:.3f}); new segments {s1 - s0}; SM clock {c0} -> "
+          f"{sm_clock_mhz()[0]} MHz [{smi}]", flush=True)
+
+
+def _timing(args, smi):
+    """What a timed series of the group dispatch reads, by what came just
+    before it: the first launch's output held (as ``chip_smoke.py`` holds
+    the launch it checks), 20 s of idle card, an emptied allocator
+    cache."""
+    held = pk.parse_events(*args)
+    torch.cuda.synchronize()
+    _series("timing: 3 launches after the first (held)", args, 3, smi)
+    _series("timing: 10 more", args, 10, smi)
+    time.sleep(20)
+    _series("timing: after 20 s idle", args, 5, smi)
+    torch.cuda.empty_cache()
+    _series("timing: after emptying the cache, the first output held",
+            args, 5, smi)
+    del held
+    torch.cuda.empty_cache()
+    _series("timing: after emptying the cache, nothing held", args, 5, smi)
+    _series("timing: the device-memory instantiation", args, 5, smi,
+            smem_max=0)
 
 
 def _same_logs(a, b):
@@ -102,6 +243,14 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=2024)
     ap.add_argument("--baseline", help="another checkout of the repo")
     ap.add_argument("--skip-profile", action="store_true")
+    ap.add_argument("--probe", action="store_true",
+                    help="the probe build's per-pair spans and counts")
+    ap.add_argument("--timing", action="store_true",
+                    help="first, the group dispatch's launches timed one "
+                    "by one: after the first, after 20 s idle, after "
+                    "emptying the allocator's cache")
+    ap.add_argument("--save", help="with --probe: .npz of every pair's "
+                    "counts")
     a = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("dispatch_probe: no CUDA device")
@@ -119,17 +268,58 @@ def main(argv=None) -> int:
         qrows = (eng.Q[dev][:Bq], eng.DSZ[dev][:Bq])
         return eng.group_args(gi, None, dev, qrows)[0]
 
+    qs = sorted(range(1, len(codes)), key=lambda q: eng.dszs[q])
+    idx = ce.CudaRefIndex(codes[0], params, dev)
+    # the automaton backend's launch of row 0 (its queries sorted by
+    # length) and phase 10's batch (genome 0 x genomes 0-63)
+    rargs, _ = idx.rows_args(*eng.gather_qrows(qs, dev), eng.LqP)
+    bargs64, _ = idx.batch_args(codes[:64])
+    if a.timing:
+        _timing(group_args(eng.build_group_index([0, 1, 2, 3], dev), B),
+                smi)
+    if a.probe:
+        saved = {}
+        _probe("group dispatch G=4 B=256", group_args(
+            eng.build_group_index([0, 1, 2, 3], dev), B), smi, saved,
+            "group")
+        _probe(f"row launch G=1 B={len(qs)}", rargs, smi, saved, "row")
+        if a.save:
+            np.savez(a.save, fields=np.array(pk.PROBE_FIELDS), **saved)
+
+    for ln in ptxas_lines(build.build_report("parse_events")):
+        print(f"ptxas {ln}", flush=True)
+
+    def plan(G, Bq, LrP):
+        smem, warps, slices = pk.launch_plan(G, Bq, LrP, pk.sm_count(dev),
+                                             pk.smem_limit(dev))
+        return (f"{'shared' if smem else 'device'} memory ({smem} B), "
+                f"{warps} warps x {slices} blocks a reference, "
+                f"{pk.occupancy(smem, warps)} blocks an SM at most")
+
     gis = {}
     for G in (4, 8, 16):
         gis[G] = eng.build_group_index(list(range(G)), dev)
         ms, out = _kernel_ms("lzt_parse_events", group_args(gis[G], B))
-        print(f"G={G} B={B}: {ms:.2f} ms, {ms / (G * B):.4f} ms per pair "
-              f"[{smi}]", flush=True)
+        print(f"G={G} B={B}: {ms:.2f} ms, {ms / (G * B):.4f} ms per pair; "
+              f"{plan(G, B, eng.LrP_ref)} [{smi}]", flush=True)
         if G == 4:
-            nev4 = out[1].cpu().numpy()
+            out4, nev4 = out, out[1].cpu().numpy()
     for Bq in (64, 128):
         ms, _ = _kernel_ms("lzt_parse_events", group_args(gis[4], Bq))
-        print(f"G=4 B={Bq}: {ms:.2f} ms [{smi}]", flush=True)
+        print(f"G=4 B={Bq}: {ms:.2f} ms; {plan(4, Bq, eng.LrP_ref)} "
+              f"[{smi}]", flush=True)
+    for tag, args in ((f"row launch G=1 B={len(qs)}", rargs),
+                      ("batch G=1 B=64", bargs64)):
+        ms, _ = _kernel_ms("lzt_parse_events", args)
+        where = plan(1, args[1].shape[0], args[0].shape[1])
+        print(f"{tag}: {ms:.3f} ms; {where} [{smi}]", flush=True)
+    ms, dout = _kernel_ms("lzt_parse_events", group_args(gis[4], B),
+                          smem_max=0)
+    if not _same_logs(dout, out4):
+        raise AssertionError("the two instantiations' logs differ")
+    print(f"G=4 B={B}, the reference read from device memory: {ms:.2f} ms,"
+          f" logs equal to the shared-memory instantiation's [{smi}]",
+          flush=True)
 
     for flat in np.argsort(nev4, axis=None)[::-1][:3]:
         g, b = np.unravel_index(flat, nev4.shape)
@@ -171,6 +361,10 @@ def main(argv=None) -> int:
     if base_lib is not None:
         _versus(f"group dispatch G=4 B={B}", "lzt_parse_events",
                 group_args(gis[4], B), base_lib, 3, smi)
+        _versus(f"row launch G=1 B={len(qs)}", "lzt_parse_events", rargs,
+                base_lib, 3, smi)
+        _versus("batch G=1 B=64", "lzt_parse_events", bargs64, base_lib, 3,
+                smi)
         _versus(f"bacterial launch G_big={Gb} x B_big={Bb}",
                 "lzt_parse_events_big", bargs, base_lib, 1, smi)
     if a.skip_profile:

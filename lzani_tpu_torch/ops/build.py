@@ -28,11 +28,12 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 GXX_FLAGS = ("-O3", "-std=c++20", "-shared", "-fPIC", "-march=native")
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+_paths: dict[str, str] = {}
 
 
 def nvcc_path() -> str:
@@ -72,12 +73,16 @@ def _build(name: str, sources: list[str], compiler: list[str],
         raise RuntimeError(f"{compiler[0]} failed ({res.returncode}): "
                            f"{' '.join(cmd)}\n{res.stdout}\n{res.stderr}")
     os.replace(tmp, path)
+    with open(path + ".log", "w") as fh:   # the compiler's report
+        fh.write(res.stdout + res.stderr)
     return path
 
 
-def build_library(name: str, sources: list[str]) -> str:
-    """CUDA sources -> shared library (nvcc, sm_90a); returns its path."""
-    return _build(name, sources, [nvcc_path()], NVCC_FLAGS, "")
+def build_library(name: str, sources: list[str], defines: tuple = ()) -> str:
+    """CUDA sources -> shared library (nvcc, sm_90a); returns its path.
+    `defines` (``-D`` flags) key the build as the other flags do."""
+    return _build(name, sources, [nvcc_path()], NVCC_FLAGS + tuple(defines),
+                  "")
 
 
 def build_gxx(name: str, sources: list[str]) -> str:
@@ -87,11 +92,24 @@ def build_gxx(name: str, sources: list[str]) -> str:
                   f"{platform.node()} {platform.machine()}", ("-lpthread",))
 
 
-def load_library(name: str, sources: list[str]) -> ctypes.CDLL:
+def load_library(name: str, sources: list[str],
+                 defines: tuple = ()) -> ctypes.CDLL:
     """Build (once per process and source hash) and load a library."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:
-            lib = ctypes.CDLL(build_library(name, sources))
-            _libs[name] = lib
+            path = build_library(name, sources, defines)
+            lib = ctypes.CDLL(path)
+            _libs[name], _paths[name] = lib, path
         return lib
+
+
+def build_report(name: str) -> str:
+    """What the compiler printed when it built the library `name` (for
+    nvcc: ptxas's registers, shared memory and spills of each kernel);
+    empty when the build predates the report."""
+    try:
+        with open(_paths[name] + ".log") as fh:
+            return fh.read()
+    except (KeyError, OSError):
+        return ""

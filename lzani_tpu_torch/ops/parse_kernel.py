@@ -27,18 +27,27 @@ ext, 0, 0, 0} and ``nev`` (G, B) int32, -1 when the parse did not reach
 ``i + msl >= dsz`` within ev_cap + 1 records. Only the first ``nev``
 records of a pair are defined.
 
+Symbol codes: 0-3 ACGT; the reference's N is 4 and the query's 5, so N
+never matches. (The group kernel reads every code >= 4 as N on both
+sides.)
+
 A wrapper launches its kernel for CUDA tensors (or raises) and takes the
 plain version only for CPU tensors. Each wrapper counts its launches. A
-launch runs one warp per pair (G x B warps; csrc/parse_events.cu says
-how they are grouped into blocks), so its time is that of its slowest
-pair once the card holds every warp at once. ``parse_events`` also
-serves the per-reference routes (``CudaRefIndex``, ``dispatch_range``:
-G = 1).
+launch runs one warp per pair, so its time is that of its slowest pair
+once the card holds every warp at once. The group kernel
+(``parse_events``) packs the symbols into bit planes in scratch on the
+card and keeps each reference's planes in shared memory when they fit
+(``launch_plan``, chosen by shape against the card's limit before the
+launch); otherwise its other instantiation reads them from device
+memory. It counts the
+launches of each instantiation too. ``parse_events`` also serves the
+per-reference routes (``CudaRefIndex``, ``dispatch_range``: G = 1).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
 
 import torch
@@ -85,55 +94,159 @@ def _check(name, refbuf, qbuf, poslist, cand, next_hit, win, dsz, nrs,
         raise ValueError(f"{name}: a buffer of 2^31 or more positions")
 
 
-def load() -> ctypes.CDLL:
-    """Build (at first use) and load the kernels' library."""
-    lib = build.load_library("parse_events", [SOURCE])
-    for fn in (lib.lzt_parse_events, lib.lzt_parse_events_big):
-        if fn.argtypes is None:  # pointers and the stream must not be cut
-            fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 15
-                           + [ctypes.c_void_p])
-            fn.restype = ctypes.c_int
+#: per-pair int64 fields of the group kernel's probe build
+#: (csrc/parse_events.cu; ``load`` checks their count against its
+#: lzt_parse_nprobe)
+PROBE_FIELDS = ("span", "steps", "jumps", "anc_cand", "anc_lce", "synced",
+                "synced_lit", "seed_chunks", "seed_loads", "seed_hits",
+                "seed_lce", "ext_bwd", "ext_fwd", "events", "cyc_anc",
+                "cyc_seed", "cyc_ext", "skipped", "cyc_run", "cyc_jump")
+NPROBE = len(PROBE_FIELDS)
+
+#: warps a block of the group kernel (its launch bound)
+MAX_WARPS = 8
+
+
+def launch_plan(G: int, B: int, LrP: int, n_sm: int, smem_max: int):
+    """(shared bytes, warps a block, blocks a reference) of a group launch
+    of G references x B queries at reference bucket LrP on a card of
+    `n_sm` SMs whose blocks may take `smem_max` bytes of dynamic shared
+    memory (``smem_limit``). The reference's three planes of LrP / 32
+    words go into shared memory when they fit; shared bytes 0 selects the
+    instantiation that reads them from device memory.
+    A warp for each query, in blocks few enough in warps that the G
+    references' blocks cover the SMs (a block's warps take its reference's
+    queries from a counter)."""
+    ref_bytes = 3 * (LrP // 32) * 4
+    per_ref = max(1, -(-n_sm // max(G, 1)))
+    warps = min(MAX_WARPS, max(1, B // per_ref))
+    return (ref_bytes if ref_bytes <= smem_max else 0, warps,
+            max(1, -(-B // warps)))
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(dev: torch.device) -> int:
+    """The SMs of the card `dev`."""
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def smem_limit(dev: torch.device) -> int:
+    """Dynamic shared memory (bytes) a block of the group kernel may take
+    on the card `dev` (its opt-in limit less the kernel's static shared
+    memory; H100: 227 KiB); raises on an error."""
+    with torch.cuda.device(dev):
+        n = load().lzt_parse_smem_max()
+    if n < 0:
+        raise RuntimeError("parse_events: shared-memory limit query failed")
+    return n
+
+
+@functools.lru_cache(maxsize=None)
+def load(probe: bool = False) -> ctypes.CDLL:
+    """Build (at first use) and load the kernels' library; `probe` builds
+    the probe variant (-DLZT_PROBE: the group kernel's per-pair spans and
+    step counts), a library of its own name and build key. Sets the C
+    entries' argument types (pointers and the stream must not be cut to
+    int) and checks the probe record's size against PROBE_FIELDS."""
+    lib = (build.load_library("parse_events_probe", [SOURCE],
+                              ("-DLZT_PROBE",)) if probe
+           else build.load_library("parse_events", [SOURCE]))
+    head = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 15 + [ctypes.c_void_p]
+    lib.lzt_parse_events.argtypes = (head + [ctypes.c_void_p] * 5
+                                     + [ctypes.c_int] * 3)
+    lib.lzt_parse_events_big.argtypes = head
+    lib.lzt_parse_occupancy.argtypes = [ctypes.c_int, ctypes.c_int]
+    for fn in (lib.lzt_parse_events, lib.lzt_parse_events_big,
+               lib.lzt_parse_occupancy, lib.lzt_parse_nprobe,
+               lib.lzt_parse_smem_max):
+        fn.restype = ctypes.c_int
+    if lib.lzt_parse_nprobe() != NPROBE:
+        raise RuntimeError(f"parse_events: the library's probe records have "
+                           f"{lib.lzt_parse_nprobe()} fields, PROBE_FIELDS "
+                           f"{NPROBE}")
     return lib
 
 
+def occupancy(smem: int, warps: int) -> int:
+    """Blocks of `warps` warps that one SM holds at once for the group
+    kernel with `smem` shared bytes (0: the device-memory instantiation),
+    on the current card (the occupancy API); raises on an error."""
+    n = load().lzt_parse_occupancy(smem, warps)
+    if n < 0:
+        raise RuntimeError("parse_events: occupancy query failed")
+    return n
+
+
 def _launch(name, fn, refbuf, qbuf, poslist, cand, next_hit, win, dsz,
-            nrs, cfg: ParseCfg, ev_cap: int):
-    """Allocate the outputs and launch the C entry `fn` (a function of
-    ``load()``) on the current stream of refbuf's device; raises when the
-    launch is refused."""
+            nrs, cfg: ParseCfg, ev_cap: int, *, group: bool = True,
+            probe=None, smem_max: int | None = None):
+    """Allocate the outputs (and a group launch's scratch) and launch the
+    C entry `fn` (a function of ``load()``) on the current stream of
+    refbuf's device; raises when the launch is refused. Returns (ev, nev,
+    shared bytes of a group launch or None). A group launch keeps the
+    reference in shared memory when it fits `smem_max` bytes (None: the
+    card's ``smem_limit``; 0 reads it from device memory); `probe`, a
+    (G, B, NPROBE) int64 tensor, takes the probe build's per-pair
+    counts."""
     dev = refbuf.device
-    if dev.type != "cuda":
-        raise ValueError(f"{name}: unsupported device {dev}")
     G, LrP = refbuf.shape
     B, LqP = qbuf.shape
+    if group and (LrP % 128 or LqP % 32):
+        # plane rows of whole words, copied in 16-byte chunks
+        raise ValueError(f"{name}: LrP {LrP} must be a multiple of 128 and "
+                         f"LqP {LqP} of 32")
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {dev}")
     evc = ev_cap + 1
     ev = torch.empty((G, B, evc, 8), dtype=torch.int32, device=dev)
     nev = torch.empty((G, B), dtype=torch.int32, device=dev)
+    extra, smem = (), None
     with torch.cuda.device(dev):
+        if group:
+            smem, warps, slices = launch_plan(
+                G, B, LrP, sm_count(dev),
+                smem_limit(dev) if smem_max is None else smem_max)
+            i32 = dict(dtype=torch.int32, device=dev)
+            rpl = torch.empty((G, 3, LrP // 32), **i32)
+            qpl = torch.empty((B, 3, LqP // 32), **i32)
+            order = torch.argsort(dsz, descending=True,
+                                  stable=True).to(torch.int32)
+            next_q = torch.zeros(G, **i32)
+            extra = (0 if probe is None else probe.data_ptr(),
+                     rpl.data_ptr(), qpl.data_ptr(), order.data_ptr(),
+                     next_q.data_ptr(), smem, warps, slices)
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(refbuf.data_ptr(), qbuf.data_ptr(), poslist.data_ptr(),
                 cand.data_ptr(), next_hit.data_ptr(), win.data_ptr(),
                 dsz.data_ptr(), nrs.data_ptr(), ev.data_ptr(),
                 nev.data_ptr(), G, B, LrP, LqP, poslist.shape[1],
                 win.shape[1], evc, cfg.mal, cfg.msl, cfg.mrd, cfg.mqd,
-                cfg.reg, cfg.aw, cfg.am, cfg.ar, stream)
+                cfg.reg, cfg.aw, cfg.am, cfg.ar, stream, *extra)
     if rc != 0:
         raise RuntimeError(f"{name}: kernel launch failed (cudaError {rc})")
-    return ev, nev
+    return ev, nev, smem
 
 
 def parse_events(refbuf, qbuf, poslist, cand, next_hit, win, dsz, nrs,
-                 cfg: ParseCfg, ev_cap: int):
+                 cfg: ParseCfg, ev_cap: int, smem_max: int | None = None):
     """Event logs of every pair of a group dispatch (see module doc).
-    CUDA tensors launch the kernel; CPU tensors take the plain version."""
+    CUDA tensors launch the kernel; CPU tensors take the plain version.
+    `smem_max`: the shared bytes the reference may take (None: the
+    card's limit; 0 selects the device-memory instantiation)."""
     args = (refbuf, qbuf, poslist, cand, next_hit, win, dsz, nrs, cfg,
             ev_cap)
     _check("parse_events", *args, big=False)
     if refbuf.device.type == "cpu":
         return parse_events_plain(*args)
-    out = _launch("parse_events", load().lzt_parse_events, *args)
+    ev, nev, smem = _launch("parse_events", load().lzt_parse_events, *args,
+                            smem_max=smem_max)
     parse_events.launches += 1
-    return out
+    if smem:
+        parse_events.launches_shared += 1
+    else:
+        parse_events.launches_device += 1
+    return ev, nev
 
 
 def parse_events_big(refbuf, qbuf, poslist, cand, next_hit, win, dsz, nrs,
@@ -146,13 +259,35 @@ def parse_events_big(refbuf, qbuf, poslist, cand, next_hit, win, dsz, nrs,
     _check("parse_events_big", *args, big=True)
     if refbuf.device.type == "cpu":
         return parse_events_big_plain(*args)
-    out = _launch("parse_events_big", load().lzt_parse_events_big, *args)
+    ev, nev, _ = _launch("parse_events_big", load().lzt_parse_events_big,
+                         *args, group=False)
     parse_events_big.launches += 1
-    return out
+    return ev, nev
 
 
-#: kernel launches since the last reset (plain-version calls never count)
+def parse_events_probe(refbuf, qbuf, poslist, cand, next_hit, win, dsz,
+                       nrs, cfg: ParseCfg, ev_cap: int,
+                       smem_max: int | None = None):
+    """``parse_events`` through the group kernel's probe build (CUDA
+    tensors only; not counted as a launch): (ev, nev, counts), counts
+    (G, B, NPROBE) int64, each pair's PROBE_FIELDS."""
+    args = (refbuf, qbuf, poslist, cand, next_hit, win, dsz, nrs, cfg,
+            ev_cap)
+    _check("parse_events_probe", *args, big=False)
+    counts = torch.zeros((*cand.shape[:2], NPROBE), dtype=torch.int64,
+                         device=refbuf.device)
+    ev, nev, _ = _launch("parse_events_probe",
+                         load(probe=True).lzt_parse_events, *args,
+                         probe=counts, smem_max=smem_max)
+    return ev, nev, counts
+
+
+#: kernel launches since the last reset (plain-version calls never count);
+#: the group kernel's also by instantiation: the reference in shared
+#: memory, or read from device memory
 parse_events.launches = 0
+parse_events.launches_shared = 0
+parse_events.launches_device = 0
 parse_events_big.launches = 0
 
 

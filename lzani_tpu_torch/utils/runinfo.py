@@ -26,6 +26,37 @@ def card_name_and_power() -> str:
     return res.stdout.strip().splitlines()[0]
 
 
+def sm_clock_mhz() -> list[int]:
+    """The first card's SM clock now and at most (MHz), as ``nvidia-smi
+    --query-gpu=clocks.sm,clocks.max.sm`` prints them."""
+    res = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvidia-smi failed: {res.stderr.strip()}")
+    return [int(v) for v in res.stdout.splitlines()[0].split(",")]
+
+
+def ptxas_lines(report: str) -> list[str]:
+    """'kernel: ptxas line' for each register/shared-memory and spill line
+    of an nvcc ``-Xptxas -v`` report (``build.build_report``), the
+    kernel's mangled name cut to its own name (and its template
+    argument)."""
+    out, kern = [], None
+    for ln in report.splitlines():
+        if "Compiling entry function" in ln or "Function properties for" in ln:
+            name = ln.split("'")[1] if "'" in ln else ln.split()[-1]
+            kern = name
+            for short in ("parse_group_kernel", "parse_big_kernel",
+                          "pack_planes_kernel", "fold_stats"):
+                if short in name:
+                    kern = short + ("<true>" if "ILb1E" in name else
+                                    "<false>" if "ILb0E" in name else "")
+        elif kern and ("Used" in ln or "spill" in ln):
+            out.append(f"{kern}: {ln.split(':', 1)[-1].strip()}")
+    return out
+
+
 def cli_timings(stderr: str) -> str:
     """'label s, ...' from the 'Timings' block that a ``-V 2`` run of the
     CLI writes to stderr."""

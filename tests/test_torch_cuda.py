@@ -14,6 +14,7 @@ from lzani_tpu.core import native_engine as ne
 from lzani_tpu.params import Params
 from lzani_tpu_torch import synth
 from lzani_tpu_torch.ops import cuda_engine as tce
+from lzani_tpu_torch.ops import parse_kernel as pk
 from lzani_tpu_torch.ops.parse_kernel import (parse_events,
                                               parse_events_big,
                                               parse_events_big_plain,
@@ -21,6 +22,33 @@ from lzani_tpu_torch.ops.parse_kernel import (parse_events,
 from lzani_tpu_torch.synth import mutate, rand_params, small_family
 
 pytestmark = pytest.mark.cuda
+
+
+def pytest_generate_tests(metafunc):
+    """Every test_kernel_* test runs on both instantiations of the group
+    kernel: "shared" (the reference in shared memory, as these shapes
+    choose) and "device" (a shared-memory limit of 0: read from device
+    memory)."""
+    if metafunc.function.__name__.startswith("test_kernel_"):
+        metafunc.parametrize("kernel_words", ["shared", "device"],
+                             indirect=True)
+
+
+@pytest.fixture(autouse=True)
+def kernel_words(request, monkeypatch):
+    """The instantiation a test_kernel_* test runs on ("device": the
+    card's shared-memory limit, which every launch's plan reads, taken as
+    0); on a card, every group launch of the test went through it."""
+    mode = getattr(request, "param", None)
+    if mode == "device":
+        monkeypatch.setattr(pk, "smem_limit", lambda dev: 0)
+    n0 = (parse_events.launches_shared, parse_events.launches_device)
+    yield mode
+    if mode is not None and torch.cuda.is_available():
+        ran = (parse_events.launches_shared - n0[0],
+               parse_events.launches_device - n0[1])
+        assert (ran[0] > 0, ran[1] > 0) == (mode == "shared",
+                                            mode == "device"), ran
 
 
 @pytest.fixture
@@ -211,6 +239,121 @@ def test_kernel_tie_break_stress(dev, block):
         _assert_same_logs(bout, parse_events_big_plain(*bargs))
         checked += _assert_oracle(beng, bout, codes, p, r_list)
     assert checked > 0
+
+
+def _tie_set(rng):
+    """The group half of test_kernel_tie_break_stress's trial: a tandem
+    repeat reference, three mutated copies and parameters with aw > 32."""
+    unit = rng.randint(0, 4, rng.randint(2, 13)).astype(np.uint8)
+    L = int(rng.randint(800, 6000))
+    flank = rng.randint(0, 4, 200).astype(np.uint8)
+    ref = np.concatenate([flank, np.tile(unit, L // len(unit) + 1)[:L],
+                          flank[::-1]])
+    codes = [ref] + [mutate(rng, ref, rate, n_ns=k, indels=k)
+                     for k, rate in enumerate((0.005, 0.02, 0.06))]
+    p = rand_params(rng)
+    p.approx_window = int(rng.randint(33, 90))
+    p.approx_mismatches = int(rng.randint(1, p.approx_window))
+    p.max_dist_in_ref = int(rng.randint(2 * len(unit) + 2, 64))
+    return codes, p
+
+
+def _row_logs(codes, r, p, dev, plain=False):
+    """One launch of reference r x every other sequence (G = 1, the
+    automaton backend's row shape, through CudaRefIndex): {q: log or
+    None}; with `plain`, kernel = plain on the launch's inputs too."""
+    qids = [q for q in range(len(codes)) if q != r]
+    idx = tce.CudaRefIndex(codes[r], p, device=dev)
+    if plain:
+        args, _ = idx.batch_args([codes[q] for q in qids])
+        _assert_same_logs(parse_events(*args), parse_events_plain(*args))
+    return dict(zip(qids, idx.parse_events_batch([codes[q] for q in qids])))
+
+
+@pytest.mark.parametrize("block", range(8))
+def test_kernel_random_stress_row_shape(dev, block):
+    """test_kernel_random_stress's sets and parameters at the row shape:
+    each sequence as the one reference of a launch over the other seven;
+    every log that is not a capacity fallback equals the oracle."""
+    checked = 0
+    for trial in range(10):
+        rng = np.random.RandomState(1000 + 10 * block + trial)
+        codes = _stress_set(rng)
+        p = rand_params(rng) if trial % 2 else Params()
+        for r in range(len(codes)):
+            for q, ev in _row_logs(codes, r, p, dev).items():
+                if ev is not None:
+                    want = ne.parse_event_log(codes[r], codes[q], p)
+                    assert np.array_equal(ev, want), (trial, r, q)
+                    checked += 1
+    assert checked > 0
+
+
+@pytest.mark.parametrize("block", range(2))
+def test_kernel_tie_break_stress_row_shape(dev, block):
+    """test_kernel_tie_break_stress's group sets at the row shape: kernel
+    = plain for every pair of each reference's launch, and = oracle for
+    every pair that is not a capacity fallback (tandem repeats put many
+    rows over CNT_CAP)."""
+    checked = 0
+    for trial in range(10):
+        codes, p = _tie_set(np.random.RandomState(9000 + 10 * block + trial))
+        for r in range(len(codes)):
+            logs = _row_logs(codes, r, p, dev, plain=True)
+            checked += len(logs)
+            for q, ev in logs.items():
+                if ev is not None:
+                    want = ne.parse_event_log(codes[r], codes[q], p)
+                    assert np.array_equal(ev, want), (trial, r, q)
+    assert checked > 0
+
+
+@pytest.mark.parametrize("msl", [5, 11, 20, 27])
+def test_kernel_seed_lengths(dev, msl):
+    """Seed lengths 5 and 11: kernel = plain = oracle. Above 16 (20 and
+    27, the WIN table's saturation): kernel = plain only, at mal 13 (the
+    group path needs mal <= 13, and the native oracle msl <= mal)."""
+    rng = np.random.RandomState(77)
+    base = rng.randint(0, 4, 5000).astype(np.uint8)
+    codes = [mutate(rng, base, rate, n_ns=2, indels=3)
+             for rate in (0.0, 0.02, 0.05, 0.1)]
+    p = Params()
+    p.min_seed_len = msl
+    p.min_anchor_len = 11 if msl <= 11 else 13
+    eng, args, ovf = _group_args(codes, p, [0, 1, 2, 3], dev)
+    out = parse_events(*args, ev_cap=eng.EV_CAP)
+    _assert_same_logs(out, parse_events_plain(*args, ev_cap=eng.EV_CAP))
+    if msl > p.min_anchor_len:
+        return
+    logs = eng.collect_group((*out, ovf))
+    for r in range(4):
+        for q in range(4):
+            if q != r:
+                want = ne.parse_event_log(codes[r], codes[q], p)
+                assert np.array_equal(logs[r][q], want), (r, q)
+
+
+def test_large_reference_takes_the_device_instantiation(dev):
+    """A 300 kb genome and a 1% relative: the composite of 600,120
+    symbols needs LrP 2^20, whose planes (384 KiB) do not fit in shared
+    memory, so the launch takes the device-memory instantiation (its
+    counter moves, the other's does not); kernel = plain = oracle."""
+    rng = np.random.RandomState(23)
+    ref = rng.randint(0, 4, 300_000).astype(np.uint8)
+    q = mutate(rng, ref, 0.01, n_ns=3, indels=10)
+    q[150_000:151_500] = rng.randint(0, 4, 1500)
+    codes, p = [ref, q], Params()
+    eng, args, ovf = _group_args(codes, p, [0, 1], dev)
+    assert eng.paths == ["group", "group"] and eng.LrP_ref == 1 << 20
+    n0 = (parse_events.launches_shared, parse_events.launches_device)
+    out = parse_events(*args, ev_cap=eng.EV_CAP)
+    assert (parse_events.launches_shared,
+            parse_events.launches_device) == (n0[0], n0[1] + 1)
+    _assert_same_logs(out, parse_events_plain(*args, ev_cap=eng.EV_CAP))
+    logs = eng.collect_group((*out, ovf))
+    for g, q_ in ((0, 1), (1, 0)):
+        want = ne.parse_event_log(codes[g], codes[q_], p)
+        assert np.array_equal(logs[g][q_], want), (g, q_)
 
 
 def test_ref_index_batch_on_card(dev):

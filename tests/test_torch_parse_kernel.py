@@ -4,6 +4,8 @@ pair for pair and the JAX v7 kernel in interpret mode on a shared group.
 The CUDA kernel itself is held against the plain version and the oracle
 by tests/test_torch_cuda.py on a card. Event logs are integers: every
 comparison is exact."""
+import types
+
 import numpy as np
 import pytest
 import torch
@@ -11,11 +13,16 @@ import torch
 from lzani_tpu.core import native_engine as ne
 from lzani_tpu.ops.pallas_engine import PallasAll2All
 from lzani_tpu.params import Params
+from lzani_tpu_torch.ops import build
 from lzani_tpu_torch.ops import cuda_engine as tce
+from lzani_tpu_torch.ops import parse_kernel as pk
 from lzani_tpu_torch.ops.parse_kernel import parse_events
 from lzani_tpu_torch.synth import mutate, rand_params, small_family
 
 CPU = torch.device("cpu")
+#: dynamic shared memory a block may take on an H100 (its opt-in limit;
+#: the group kernel has no static shared memory): ``pk.smem_limit`` there
+H100_SMEM = 227 * 1024
 
 
 def _group_logs(eng, r_list, device=CPU):
@@ -188,3 +195,88 @@ def test_wrapper_rejects_bad_inputs():
     bad[1] = args[1][:, ::2]                  # qbuf shape / contiguity
     with pytest.raises(ValueError):
         parse_events(*bad, ev_cap=16)
+
+
+@pytest.mark.parametrize("G,B,LrP", [(4, 256, 1 << 17), (1, 255, 1 << 17),
+                                     (1, 64, 1 << 17), (4, 8, 1 << 19),
+                                     (2, 8, 1 << 20), (16, 256, 1 << 16),
+                                     (1, 1, 1 << 12)])
+def test_launch_plan_covers_the_queries_and_the_card(G, B, LrP):
+    """The group kernel's launch plan (chosen on the host, by shape): the
+    reference's planes (3 bits a symbol) in shared memory when they fit,
+    else the device-memory instantiation; a warp for each query of a
+    reference, no more blocks than that needs, and blocks on every SM of a
+    132-SM card when the pairs are that many."""
+    smem, warps, slices = pk.launch_plan(G, B, LrP, 132, H100_SMEM)
+    ref_bytes = 3 * LrP // 8
+    assert smem == (ref_bytes if ref_bytes <= H100_SMEM else 0)
+    assert 1 <= warps <= pk.MAX_WARPS
+    assert warps * slices >= B > warps * (slices - 1)
+    assert G * slices >= min(132, G * B)
+
+
+def test_launch_plan_shapes():
+    """The plans of the main path's launches on a 132-SM card: the viral
+    group dispatch (4 x 256: 148 blocks of 7 warps) and the automaton
+    backend's row launch (1 x 255: 255 blocks of one warp) keep their 2^17
+    reference in 48 KiB of shared memory; a 2^20
+    reference (a composite over 2^19 - 1,024 symbols) is read from device
+    memory; a limit of 0 selects the device-memory instantiation at any
+    shape, with the same warps and blocks."""
+    assert pk.launch_plan(4, 256, 1 << 17, 132, H100_SMEM) == (49152, 7, 37)
+    assert pk.launch_plan(1, 255, 1 << 17, 132, H100_SMEM) == (49152, 1, 255)
+    assert pk.launch_plan(1, 64, 1 << 17, 132, H100_SMEM) == (49152, 1, 64)
+    assert pk.launch_plan(2, 8, 1 << 19, 132, H100_SMEM) == (196608, 1, 8)
+    assert pk.launch_plan(2, 8, 1 << 20, 132, H100_SMEM)[0] == 0
+    assert pk.launch_plan(4, 256, 1 << 17, 132, 0) == (0, 7, 37)
+
+
+def test_a_300kb_pair_has_a_reference_bucket_over_shared_memory():
+    """The engine's buckets for a 300 kb genome and its relative: group
+    path rows (composite under MAX_REF_SYMS) at LrP 2^20, which the plan
+    sends to the device-memory instantiation (tests/test_torch_cuda.py
+    runs it on a card)."""
+    rng = np.random.RandomState(23)
+    ref = rng.randint(0, 4, 300_000).astype(np.uint8)
+    q = mutate(rng, ref, 0.01, n_ns=3, indels=10)
+    eng = tce.CudaAll2All([ref, q], Params(), devices=[CPU])
+    assert eng.paths == ["group", "group"] and eng.LrP_ref == 1 << 20
+    assert pk.launch_plan(2, eng.B, eng.LrP_ref, 132, H100_SMEM)[0] == 0
+
+
+def test_group_launch_rejects_buckets_off_the_word_grid():
+    """The group kernel reads whole plane words and copies a reference's
+    rows in 16-byte chunks: a launch with LrP off a multiple of 128 or
+    LqP off a multiple of 32 raises before it reaches the card."""
+    p = Params()
+    rng = np.random.RandomState(1)
+    ref = rng.randint(0, 4, 300).astype(np.uint8)
+    _, args, _ = _one_pair_inputs(ref, ref.copy(), p)
+    for i, cut in ((0, 64), (1, 16)):
+        bad = list(args)
+        bad[i] = args[i][:, :args[i].shape[1] - cut].contiguous()
+        with pytest.raises(ValueError, match="multiple of"):
+            pk._launch("parse_events", None, *bad, ev_cap=16)
+
+
+def test_nvcc_defines_key_the_build(tmp_path, monkeypatch):
+    """A -D flag (the probe build's -DLZT_PROBE) keys the kernel build
+    cache as a value: another library path, and a rebuild."""
+    calls = []
+
+    def fake_run(cmd, capture_output, text):
+        calls.append(cmd)
+        open(cmd[cmd.index("-o") + 1], "wb").close()
+        return types.SimpleNamespace(returncode=0, stdout="", stderr="")
+
+    monkeypatch.setattr(build, "BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr(build, "nvcc_path", lambda: "nvcc")
+    monkeypatch.setattr(build.subprocess, "run", fake_run)
+    plain = build.build_library("parse_events", [pk.SOURCE])
+    probe = build.build_library("parse_events", [pk.SOURCE],
+                                ("-DLZT_PROBE",))
+    assert plain != probe and len(calls) == 2
+    assert "-DLZT_PROBE" in calls[1] and "-DLZT_PROBE" not in calls[0]
+    assert build.build_library("parse_events", [pk.SOURCE],
+                               ("-DLZT_PROBE",)) == probe
+    assert len(calls) == 2
