@@ -12,9 +12,10 @@ non-zero):
   1. the card: torch's device name and nvidia-smi's name and power limit;
   2. build: the CUDA parse kernels (one nvcc build of parse_events.cu,
      both C entries, and its probe build, -DLZT_PROBE), the fold kernel
-     (one nvcc build of fold_stats.cu) and the port's native C++ engine
-     (g++), from the sources in this checkout, the four compilers started
-     together; ptxas's registers, shared memory and spills of each kernel;
+     (one nvcc build of fold_stats.cu, and its probe build) and the port's
+     native C++ engine (g++), from the sources in this checkout, the five
+     compilers started together; ptxas's registers, shared memory and
+     spills of each kernel;
   Group path (default parameters, viral-sized genomes):
   3. kernel = plain: one whole group dispatch of the main path (G = 4
      references x B = 256 queries at the run's LrP/LqP buckets), the
@@ -99,11 +100,17 @@ non-zero):
      64 logs of phase 10's ``parse_events_batch`` launch, with and
      without factors: stats, status (0 for every pair with a log), factor
      counts and factors equal, the stats equal to the native engine's;
+     the same logs with a ring of 32 stack entries a warp (the stacks'
+     bottoms in device memory) equal to the plain version; the same logs
+     with each log's middle ext raised by one: every pair with records
+     rejected (status -1, no stats), equal to the plain version;
      then the main path's launch of reference row 0 (its 255 queries from
      the resident query matrix, as ``all2all_jax`` makes it): the parse
      kernel's logs against the native oracle (its plain version at this
      shape does not fit in the script's time), the fold kernel against
-     its plain version, both timed; then the port's CLI ``--backend jax``
+     its plain version, both timed, the fold's launch plan, and the
+     fold's probe build: the heaviest pair's warp span and counts; then
+     the port's CLI ``--backend jax``
      (in-process, no aln file) on phase 4's viral file, both kernels'
      counters set to 0 just before and read just after: TSV and ids
      byte-equal to phase 5's native output, both kernels launched, no
@@ -889,7 +896,94 @@ def check_fold(batch, ref, queries, params, factors, reps=3):
     bound, bound_by = fold_bound_ms(ev, fargs[3], 1, qbuf.shape[0])
     return dict(pairs=int(nev.numel()), skipped=int(skipped.sum()),
                 factors=n_fac, ms=ms, plain_ms=plain_ms, max_abs_err=err,
-                bound_ms=bound, bound_by=bound_by, plain_on="cpu")
+                bound_ms=bound, bound_by=bound_by, plain_on="cpu",
+                fargs=fargs, plain=(p_stats, p_status, p_fac, p_nfac)
+                if factors else None)
+
+
+def check_fold_spill(f64, ring=32):
+    """Phase 15a: the fold kernel on the logs of `f64` (``check_fold``'s
+    launch with factors) with a ring of `ring` stack entries a warp, so
+    that most pairs' stacks pass it: their bottom entries and the stats
+    pass read device memory. Stats, status, factor counts and factors
+    equal to the plain version's; returns the pairs whose factor count
+    passed the ring. These launches do not count."""
+    import torch
+
+    from lzani_tpu_torch.ops.fold_stats import fold_stats
+
+    launches0 = fold_stats.launches
+    stats, status, fac, nfac = (t.cpu() for t in fold_stats(
+        *f64["fargs"], want_factors=True, ring=ring))
+    fold_stats.launches = launches0
+    p_stats, p_status, p_fac, p_nfac = f64["plain"]
+    if not (torch.equal(stats, p_stats) and torch.equal(status, p_status)
+            and torch.equal(nfac, p_nfac)):
+        raise AssertionError(f"fold kernel with a ring of {ring}: stats, "
+                             f"status or factor counts differ from the "
+                             f"plain version")
+    for b in range(nfac.shape[1]):
+        k = int(p_nfac[0, b])
+        if not torch.equal(fac[0, b, :k], p_fac[0, b, :k]):
+            raise AssertionError(f"fold kernel with a ring of {ring}: pair "
+                                 f"{b}'s factors differ from the plain "
+                                 f"version")
+    return int((p_nfac > ring).sum())
+
+
+def check_fold_rejects(f64):
+    """Phase 15a: the logs of `f64` with the ext of each log's middle
+    record raised by one, on the card: every pair with a record has
+    status -1 and no stats, every other as before; equal to the plain
+    version. Returns the pairs rejected. These launches do not count."""
+    import torch
+
+    from lzani_tpu_torch.ops.fold_stats import fold_stats, fold_stats_plain
+
+    refbuf, qbuf, ev, nev, dsz, nrs, cfg = f64["fargs"]
+    ev = ev.clone()
+    n = nev[0].cpu()
+    for b in torch.nonzero(n > 0).flatten().tolist():
+        ev[0, b, int(n[b]) // 2, 4] += 1
+    args = (refbuf, qbuf, ev, nev, dsz, nrs, cfg)
+    launches0 = fold_stats.launches
+    stats, status = (t.cpu() for t in fold_stats(*args))
+    fold_stats.launches = launches0
+    p_stats, p_status = fold_stats_plain(
+        *[a.cpu() if isinstance(a, torch.Tensor) else a for a in args])
+    if not (torch.equal(stats, p_stats) and torch.equal(status, p_status)):
+        raise AssertionError("fold kernel on corrupted logs: stats or status "
+                             "differ from the plain version")
+    want = torch.where(n > 0, -1, f64["plain"][1][0])
+    if not torch.equal(status[0], want) or stats[0, n > 0].any():
+        raise AssertionError(f"fold kernel accepted a corrupted log: status "
+                             f"{status[0].tolist()}")
+    return int((n > 0).sum())
+
+
+def fold_probe_heaviest(fk):
+    """Phase 15a: the fold's probe build (-DLZT_PROBE) on the row launch
+    of `fk`, its stats and status equal to the kernel's: the pair of
+    longest warp span (clock64() cycles) with its counts, and the SM clock
+    (MHz, now and at most) read just after."""
+    import torch
+
+    from lzani_tpu_torch.ops import fold_stats as fs
+    from lzani_tpu_torch.utils.runinfo import sm_clock_mhz
+
+    stats, status, probe = fs.fold_stats_probe(*fk["fargs"])
+    launches0 = fs.fold_stats.launches
+    want = fs.fold_stats(*fk["fargs"])
+    fs.fold_stats.launches = launches0
+    if not (torch.equal(stats, want[0]) and torch.equal(status, want[1])):
+        raise AssertionError("fold probe build: stats or status differ")
+    pr = probe.reshape(-1, fs.NPROBE).cpu().numpy()
+    j = int(pr[:, 0].argmax())
+    out = {f: int(pr[j, k]) for k, f in enumerate(fs.PROBE_FIELDS)}
+    out["pair"] = [0, j]
+    out["median_span"] = int(sorted(pr[:, 0])[len(pr) // 2])
+    out["sm_clock_mhz"] = sm_clock_mhz()
+    return out
 
 
 def counted(fn):
@@ -1044,21 +1138,24 @@ def main() -> int:
         return time.perf_counter() - t0
 
     # one compiler per source and build, started together
-    with ThreadPoolExecutor(4) as pool:
+    with ThreadPoolExecutor(5) as pool:
         nvcc = pool.submit(timed, load_kernels)
         nvcc_probe = pool.submit(timed, lambda: load_kernels(probe=True))
         nvcc_fold = pool.submit(timed, fold_stats.load)
+        nvcc_fold_probe = pool.submit(timed,
+                                      lambda: fold_stats.load(probe=True))
         gxx = pool.submit(timed, native_engine.get_lib)
-        t_nvcc, t_probe, t_fold, t_gxx = (
+        t_nvcc, t_probe, t_fold, t_fold_probe, t_gxx = (
             nvcc.result(), nvcc_probe.result(), nvcc_fold.result(),
-            gxx.result())
-    ptxas = ptxas_lines(build_report("parse_events"))
+            nvcc_fold_probe.result(), gxx.result())
+    ptxas = (ptxas_lines(build_report("parse_events"))
+             + ptxas_lines(build_report("fold_stats")))
     say(2, f"built parse_events.cu (lzt_parse_events, lzt_parse_events_big) "
            f"with nvcc in {t_nvcc:.2f} s, its probe build (-DLZT_PROBE) in "
            f"{t_probe:.2f} s, fold_stats.cu (lzt_fold_stats) with nvcc in "
-           f"{t_fold:.2f} s and the port's native engine (lzani_core.cpp, "
-           f"g++) in {t_gxx:.2f} s, in parallel; ptxas: "
-           + "; ".join(ptxas))
+           f"{t_fold:.2f} s, its probe build in {t_fold_probe:.2f} s and the "
+           f"port's native engine (lzani_core.cpp, g++) in {t_gxx:.2f} s, "
+           f"in parallel; ptxas: " + "; ".join(ptxas))
 
     # ---- group path --------------------------------------------------
     names, codes = synth.viral_set(seed=SEED, n=N_GENOMES)
@@ -1281,8 +1378,24 @@ def main() -> int:
                 f"the native engine; kernel {f64['ms']:.3f} ms, plain "
                 f"{f64['plain_ms']:.1f} ms (host CPU), bound "
                 f"{f64['bound_ms']:.5f} ms ({f64['bound_by']}) [{smi}]")
+        n_spill = check_fold_spill(f64)
+        n_rej = check_fold_rejects(f64)
+        say(15, f"fold kernel on the same logs with a ring of 32 stack "
+                f"entries ({n_spill} pairs' stacks pass it): equal to the "
+                f"plain version; with each log's middle ext raised by one: "
+                f"all {n_rej} pairs with records rejected (status -1, no "
+                f"stats), equal to the plain version [{smi}]")
         jb = jax_row_batch(dev, codes, params)
         fk = check_fold(jb, codes[0], jb["queries"], params, factors=False)
+        fplan = fold_stats.launch_plan(
+            1, jb["B"], jb["args"][0].shape[1], jb["LqP"], sm_count(dev),
+            fold_stats.smem_limit(dev))
+        fplan = dict(smem=fplan[0], ref_smem=fplan[1], q_smem=fplan[2],
+                     warps=fplan[3], blocks_per_ref=fplan[4],
+                     ring=fold_stats.RING,
+                     blocks_per_sm_max=fold_stats.occupancy(fplan[0],
+                                                           fplan[3]))
+        fheavy = fold_probe_heaviest(fk)
         say(15, f"the jax path's launch of row 0 (G=1, B={jb['B']}, LqP="
                 f"{jb['LqP']}, queries from the resident matrix): parse "
                 f"kernel {jb['ms']:.3f} ms, bound {jb['bound_ms']:.4f} ms "
@@ -1290,8 +1403,9 @@ def main() -> int:
                 f"fold kernel == plain (stats, status: {fk['skipped']} "
                 f"skipped), stats equal to the native engine; fold kernel "
                 f"{fk['ms']:.3f} ms, plain {fk['plain_ms']:.1f} ms (host "
-                f"CPU), bound {fk['bound_ms']:.5f} ms ({fk['bound_by']}) "
-                f"[{smi}]")
+                f"CPU), bound {fk['bound_ms']:.5f} ms ({fk['bound_by']}); "
+                f"fold launch plan {json.dumps(fplan)}; fold probe build, "
+                f"the heaviest pair {json.dumps(fheavy)} [{smi}]")
         jm, t_jax, j_launches, j_folds = check_jax_cli(td, "viral", nthreads,
                                                        n_pairs)
         js = jm.engine_stats
@@ -1379,7 +1493,7 @@ def main() -> int:
          "reduced_bound_ms": red["bound_ms"]},
         {"name": "fold_stats", "route": "cuda",
          "source": "lzani_tpu_torch/csrc/fold_stats.cu",
-         "replaces": "lzani_tpu/ops/parse.py:535",
+         "replaces": "lzani_tpu/ops/parse.py:536",
          "also_replaces": ["lzani_tpu/ops/parse.py:78"],
          "launches": j_folds, "mesh_launches": m_folds, "G": 1,
          "B": jb["B"], "max_abs_err": fk["max_abs_err"], "ms": fk["ms"],
@@ -1388,7 +1502,10 @@ def main() -> int:
          "library_ms": None, "batch64_ms": f64["ms"],
          "batch64_plain_ms": f64["plain_ms"],
          "batch64_bound_ms": f64["bound_ms"],
-         "batch64_max_abs_err": f64["max_abs_err"]}]}), flush=True)
+         "batch64_max_abs_err": f64["max_abs_err"],
+         "launch_plan_1x255": fplan, "heaviest_pair": fheavy,
+         "ring32_spill_pairs": n_spill, "corrupted_pairs_rejected": n_rej}]}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": kind, "count": count}}),
           flush=True)

@@ -113,13 +113,11 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "planes.cuh"
+
 namespace {
 
 constexpr int SAT = 27;  // 1 - 4^-l == 1.0 in f64 for l >= 27 (anchor_tables)
-constexpr int SYM_N_REF = 4;
-constexpr int SYM_N_SEQ = 5;
-constexpr int LANES = 32;
-constexpr unsigned FULL = 0xffffffffu;
 constexpr int WARPS_BIG = 4;   // warps per block of the long-genome kernel
 constexpr int MAX_WARPS = 8;   // warps per block of the group kernel
 constexpr int SEED_CHUNKS = 4; // 32-position chunks of a seed-window pass
@@ -133,18 +131,10 @@ enum {
     PR_CYC_SEED, PR_CYC_EXT, PR_SKIPPED, PR_CYC_RUN, PR_CYC_JUMP,
     NPROBE = 20
 };
-#ifdef LZT_PROBE
-#define PROBE(stmt) stmt
-#else
-#define PROBE(stmt)
-#endif
 
 struct Cfg {
     int mal, msl, mrd, mqd, reg, aw, am, ar;
 };
-
-// highest set bit of m != 0
-__device__ __forceinline__ int top_bit(unsigned m) { return 31 - __clz(m); }
 
 // ---------------------------------------------------------------------------
 // candidate tables
@@ -318,55 +308,6 @@ struct ByteSyms {
 // ---------------------------------------------------------------------------
 // group path: bit-plane words, the reference in shared or device memory
 // ---------------------------------------------------------------------------
-
-// Three planes of 32-symbol words: bit j of word w is symbol 32 w + j
-// (lo = bit 0 of the code, hi = bit 1, nn = N). Words outside [0, nw)
-// read as N.
-struct Planes {
-    const uint32_t* lo;
-    const uint32_t* hi;
-    const uint32_t* nn;
-    int nw;
-};
-
-struct W3 {
-    uint32_t lo, hi, nn;
-};
-
-__device__ __forceinline__ W3 word_at(const Planes& P, int w) {
-    if ((unsigned)w < (unsigned)P.nw) return W3{P.lo[w], P.hi[w], P.nn[w]};
-    return W3{0u, 0u, FULL};
-}
-
-// the 32 symbols [32 w + s, 32 w + s + 32) of words w (a) and w + 1 (b)
-__device__ __forceinline__ W3 join(const W3& a, const W3& b, int s) {
-    return W3{__funnelshift_r(a.lo, b.lo, s), __funnelshift_r(a.hi, b.hi, s),
-              __funnelshift_r(a.nn, b.nn, s)};
-}
-
-// the 32 symbols [p, p + 32) (p may be negative: they read as N)
-__device__ __forceinline__ W3 win32(const Planes& P, int p) {
-    const int w = p >> 5;  // floor
-    return join(word_at(P, w), word_at(P, w + 1), p & 31);
-}
-
-// the 64 symbols [p, p + 64) as two windows
-__device__ __forceinline__ void win64(const Planes& P, int p, W3& a, W3& b) {
-    const int w = p >> 5;
-    const W3 x = word_at(P, w), y = word_at(P, w + 1), z = word_at(P, w + 2);
-    a = join(x, y, p & 31);
-    b = join(y, z, p & 31);
-}
-
-// bit j set where the two windows' symbols j differ or either is N
-__device__ __forceinline__ uint32_t diff(const W3& a, const W3& b) {
-    return (a.lo ^ b.lo) | (a.hi ^ b.hi) | a.nn | b.nn;
-}
-
-// offset of the first mismatch of a window, 32 when all 32 match
-__device__ __forceinline__ int first_miss(uint32_t d) {
-    return d ? __ffs(d) - 1 : LANES;
-}
 
 struct WordSyms {
     Planes R, Q;
@@ -572,56 +513,13 @@ struct WordSyms {
             FULL, b_len == s_len && b_dist == dist ? b_pos : INT_MAX);
     }
 
-    // mismatch mask of scan offsets [e0, e0 + 32): bit j is offset e0 + j
-    template <bool FWD>
-    __device__ __forceinline__ unsigned miss_word(int dpos, int rpos,
-                                                  int e0) const {
-        if (FWD) return diff(win32(Q, dpos + e0), win32(R, rpos + e0));
-        // offset e reads position dpos - 1 - e: the window ending there,
-        // reversed
-        return __brev(diff(win32(Q, dpos - e0 - LANES),
-                           win32(R, rpos - e0 - LANES)));
-    }
-
     // ByteSyms::ext with each step's mismatch mask from one word compare
     template <bool FWD>
     __device__ __forceinline__ int ext(const Cfg& c, int dpos, int rpos,
                                        int max_len, int lane,
                                        long long& steps) const {
-        const unsigned le = FULL >> (31 - lane);
-        int carry = 0, lastmiss = -1 - c.ar, last = 0;
-        unsigned prev = 0;
-        for (int base = 0; base < max_len; base += LANES) {
-            PROBE(++steps);
-            const int left = max_len - base;
-            const unsigned inm = left >= LANES ? FULL : (1u << left) - 1;
-            const unsigned M = miss_word<FWD>(dpos, rpos, base) & inm;
-            unsigned O;
-            if (c.aw <= LANES) {
-                O = (unsigned)((((unsigned long long)M << LANES) | prev)
-                               >> (LANES - c.aw));
-            } else {  // offsets e >= aw drop the miss at e - aw
-                const int sh = c.aw - base;
-                const unsigned ge =
-                    sh <= 0 ? FULL : sh >= LANES ? 0u : FULL << sh;
-                O = miss_word<FWD>(dpos, rpos, base - c.aw) & inm & ge;
-            }
-            const bool in = (inm >> lane) & 1u;
-            const bool miss = (M >> lane) & 1u;
-            const int bad = carry + __popc(M & le) - __popc(O & le);
-            const unsigned S = __ballot_sync(FULL, !in || bad > c.am);
-            const unsigned Mle = M & le;
-            const int lm = Mle ? base + top_bit(Mle) : lastmiss;
-            unsigned Q = __ballot_sync(FULL,
-                                       in && !miss && base + lane - lm >= c.ar);
-            if (S) Q &= (1u << (__ffs(S) - 1)) - 1;
-            if (Q) last = base + top_bit(Q) + 1;
-            if (S) break;
-            carry += __popc(M) - __popc(O);
-            if (M) lastmiss = base + top_bit(M);
-            prev = M;
-        }
-        return last;
+        return ext_scan<FWD>(Q, R, c.aw, c.am, c.ar, dpos, rpos, max_len,
+                             lane, steps);
     }
 };
 
@@ -760,46 +658,6 @@ __device__ void parse_pair(Syms& S, Cand& cd, const int32_t* __restrict__ pos,
 // kernels
 // ---------------------------------------------------------------------------
 
-// Bit planes of a (rows, L) symbol buffer, one warp per 32-symbol word:
-// (rows, 3, L / 32) words, a code >= 4 or a position at or past the row's
-// length read as N.
-__global__ void pack_planes_kernel(const uint8_t* __restrict__ buf,
-                                   const int32_t* __restrict__ lens,
-                                   int rows, int L,
-                                   uint32_t* __restrict__ planes) {
-    const int lane = threadIdx.x % LANES;
-    const int nw = L / LANES;
-    const long long total = (long long)rows * nw;
-    const long long step = (long long)gridDim.x * blockDim.x / LANES;
-    for (long long t = (blockIdx.x * (long long)blockDim.x + threadIdx.x)
-                       / LANES;
-         t < total; t += step) {
-        const int row = (int)(t / nw), w = (int)(t % nw);
-        const int p = w * LANES + lane;
-        const int s = buf[(size_t)row * L + p];
-        const bool n = p >= lens[row] || s >= SYM_N_REF;
-        const unsigned lo = __ballot_sync(FULL, !n && (s & 1));
-        const unsigned hi = __ballot_sync(FULL, !n && (s & 2));
-        const unsigned nn = __ballot_sync(FULL, n);
-        uint32_t* o = planes + (size_t)row * 3 * nw + w;
-        if (lane == 0) o[0] = lo;
-        if (lane == 1) o[nw] = hi;
-        if (lane == 2) o[2 * (size_t)nw] = nn;
-    }
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-    const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-    const size_t s = __cvta_generic_to_global(src);
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
-                 "l"(s)
-                 : "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-    asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
 // Group path. Grid (slices, G): block (s, g) serves reference g; its warps
 // take queries order[k] from the counter next_q[g]. SMEM: the reference's
 // planes (rows of RW words) are copied into shared memory first.
@@ -823,11 +681,7 @@ __global__ void __launch_bounds__(MAX_WARPS * LANES) parse_group_kernel(
         // the words that hold [0, nr) and the one after; later words read
         // as N through Planes::nw
         const int nw = min(RW, (nr >> 5) + 2);
-        const int n16 = (nw + 3) >> 2;  // 16-byte chunks a plane
-        for (int t = threadIdx.x; t < 3 * n16; t += blockDim.x) {
-            const int pl = t / n16, k = 4 * (t % n16);
-            cp_async16(smem + (size_t)pl * RW + k, rg + (size_t)pl * RW + k);
-        }
+        planes_to_smem(smem, rg, RW, nw, threadIdx.x, blockDim.x);
         cp_async_wait_all();
         __syncthreads();
         R = Planes{smem, smem + RW, smem + 2 * (size_t)RW, nw};
@@ -868,19 +722,6 @@ __global__ void __launch_bounds__(WARPS_BIG * LANES) parse_big_kernel(
                next_hit + (size_t)pair * LqP, win + (size_t)g * WinP,
                ev + (size_t)pair * evc * 8, nev + pair, evc, c, lane,
                nullptr);
-}
-
-int pack_planes(const void* buf, const void* lens, int rows, int L,
-                void* planes, cudaStream_t st) {
-    const long long words = (long long)rows * (L / LANES);
-    const int threads = 256;
-    const long long want = (words * LANES + threads - 1) / threads;
-    const int blocks = (int)(want < 4096 ? want : 4096);
-    if (blocks > 0)
-        pack_planes_kernel<<<blocks, threads, 0, st>>>(
-            (const uint8_t*)buf, (const int32_t*)lens, rows, L,
-            (uint32_t*)planes);
-    return (int)cudaGetLastError();
 }
 
 }  // namespace

@@ -3,9 +3,25 @@ launch, on the smoke sets of ``chip_smoke.py``.
 
     python -m lzani_tpu_torch.dispatch_probe [--n 256] [--seed 2024] \\
         [--baseline OTHER_CHECKOUT] [--skip-profile] [--timing] \\
-        [--probe [--save F]]
+        [--probe [--save F]] [--fold [--save F]]
 
 Prints, each line beside the card's name and power limit:
+  - with ``--fold``, only the fold kernel (``ops/fold_stats.py``), on the
+    logs of the automaton backend's row launch (G = 1 x 255 queries
+    sorted by length, masked as ``RefIndexJax.dispatch`` masks them) and
+    of ``chip_smoke.py`` phase 10's batch (1 x 64): its probe build's ten
+    pairs of longest warp span (``clock64()``) with their counts (events,
+    extension scans and their symbols, symbols emitted, gaps with their
+    lengths, scans and splits, pushes and top merges, region kills and
+    their pops, the stack's depth, entries read below the shared-memory
+    ring) and the cycles spent in records, gaps, back and forward scans,
+    emission, kills and the stats pass, its stats equal to the plain
+    build's (`--save` writes every pair's counts); ptxas's report; the
+    kernel's ms at both shapes (CUDA events, the mean of 3 launches after
+    3 others) with its bound, launch plan and occupancy; and with
+    ``--baseline``, the other checkout's fold kernel in turns (baseline,
+    this, this, baseline) on the same inputs, whose stats and status must
+    be equal;
   - with ``--timing``, first the G = 4 x B = 256 group dispatch of
     ``chip_smoke.py`` phase 3 launched in series, each launch timed alone
     (CUDA events), with the allocator's new device-memory segments and
@@ -62,10 +78,11 @@ import torch
 from . import synth
 from .ops import build
 from .ops import cuda_engine as ce
+from .ops import fold_stats as fs
 from .ops import parse_kernel as pk
 from .params import Params
-from .utils.runinfo import (card_name_and_power, launch_bound_ms,
-                            ptxas_lines, sm_clock_mhz)
+from .utils.runinfo import (card_name_and_power, fold_bound_ms,
+                            launch_bound_ms, ptxas_lines, sm_clock_mhz)
 
 
 def _other_kernels(tree):
@@ -237,6 +254,165 @@ def _versus(tag, entry, args, base_lib, reps, smi):
         raise AssertionError(f"{tag}: the two kernels' logs differ")
 
 
+def _fold_args(args, overflow):
+    """The fold's arguments on the logs of one parse launch of `args`,
+    masked as ``engine_jax.RefIndexJax.dispatch`` masks them (a pair with
+    an overflowed bucket, no log or too many records: nev = -1)."""
+    refbuf, qbuf, _, _, _, _, dsz, nrs, cfg, cap = args
+    ev, nev = pk.parse_events(*args)
+    skip = overflow | (nev < 0) | (nev > cap)
+    return (refbuf, qbuf, ev, torch.where(skip, -1, nev), dsz, nrs, cfg)
+
+
+def _other_fold(tree):
+    """(library, C interface version) of the fold kernel of another
+    checkout's csrc/fold_stats.cu, built and loaded under its own name:
+    version 2 (``lzt_fold_abi``) is this tree's; 1 (no ``lzt_fold_abi``:
+    the one-thread-per-pair kernel) has the entry without scratch."""
+    lib = build.load_library("fold_stats_baseline", [os.path.join(
+        tree, "lzani_tpu_torch", "csrc", "fold_stats.cu")])
+    abi = lib.lzt_fold_abi() if hasattr(lib, "lzt_fold_abi") else 1
+    if abi not in (1, 2):
+        raise ValueError(f"{tree}: unknown fold kernel interface {abi}")
+    if abi == 1:
+        lib.lzt_fold_stats.argtypes = ([ctypes.c_void_p] * 10
+                                       + [ctypes.c_int] * 14
+                                       + [ctypes.c_void_p])
+        lib.lzt_fold_stats.restype = ctypes.c_int
+    else:
+        fs.set_argtypes(lib)
+    return lib, abi
+
+
+def _fold_abi1(fn, refbuf, qbuf, ev, nev, dsz, nrs, cfg):
+    """(stats, status) of one launch of a version-1 fold entry on the
+    current stream; raises when the launch is refused."""
+    dev = refbuf.device
+    G, LrP = refbuf.shape
+    B, LqP = qbuf.shape
+    F = fs.stack_entries(LqP)
+    stats = torch.empty((G, B, 3), dtype=torch.int32, device=dev)
+    status = torch.empty((G, B), dtype=torch.int32, device=dev)
+    nfac = torch.empty((G, B), dtype=torch.int32, device=dev)
+    stack = torch.empty((G, B, F, 2), dtype=torch.int32, device=dev)
+    rc = fn(refbuf.data_ptr(), qbuf.data_ptr(), ev.data_ptr(),
+            nev.data_ptr(), dsz.data_ptr(), nrs.data_ptr(), stats.data_ptr(),
+            status.data_ptr(), stack.data_ptr(), nfac.data_ptr(), G, B, LrP,
+            LqP, ev.shape[2], F, 2, cfg.msl, cfg.mrd, cfg.mqd, cfg.reg,
+            cfg.aw, cfg.am, cfg.ar,
+            torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"baseline lzt_fold_stats: kernel launch failed "
+                           f"(cudaError {rc})")
+    return stats, status
+
+
+def _fold_ms(fargs, reps=3, base=None):
+    """(mean kernel ms of `reps` launches after `reps` others, the first
+    launch's (stats, status)) of this package's fold kernel, or of `base`
+    (``_other_fold``)."""
+    lib, abi = base or (fs.load(), 2)
+
+    def launch():
+        if abi == 1:
+            return _fold_abi1(lib.lzt_fold_stats, *fargs)
+        return fs._launch(lib, *fargs, False)[:2]
+
+    out = launch()
+    for _ in range(reps):
+        launch()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        launch()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps, out
+
+
+def _fold_probe(tag, fargs, smi, save, key):
+    """The fold's probe build on one launch: the ten pairs of longest span
+    with their counts; its stats and status must equal the plain
+    build's."""
+    G, B = fargs[3].shape
+    stats, status, probe = fs.fold_stats_probe(*fargs)
+    ref = fs._launch(fs.load(), *fargs, False)[:2]
+    if not (torch.equal(stats, ref[0]) and torch.equal(status, ref[1])):
+        raise AssertionError(f"{tag}: the probe build's stats differ")
+    pr = probe.cpu().numpy().reshape(G * B, fs.NPROBE)
+    save[key] = pr
+    clk = "{} / {} MHz".format(*sm_clock_mhz())
+    f = {n: j for j, n in enumerate(fs.PROBE_FIELDS)}
+    tot = pr.sum(0)
+    print(f"fold probe {tag}: {G * B} pairs, spans max {pr[:, 0].max()} / "
+          f"median {int(np.median(pr[:, 0]))} cycles (SM clock now, max: "
+          f"{clk}); totals " + ", ".join(f"{n} {tot[j]}" for n, j in f.items()
+                                         if n not in ("span", "max_n"))
+          + f" [{smi}]", flush=True)
+    for flat in np.argsort(pr[:, 0])[::-1][:10]:
+        g, b = divmod(int(flat), B)
+        row = pr[flat]
+        span = max(int(row[0]), 1)
+        print(f"  pair (g {g}, b {b}) dsz {int(fargs[4][b])}, status "
+              f"{int(status[g, b])}: "
+              + ", ".join(f"{n} {row[j]}" for n, j in f.items())
+              + "; share " + ", ".join(
+                  f"{n[4:]} {row[j] / span:.3f}" for n, j in f.items()
+                  if n.startswith("cyc_")), flush=True)
+
+
+def _fold(a, dev, smi, codes, params, rows, batch) -> None:
+    """--fold: the fold kernel on the automaton backend's row launch
+    (`rows`: parse arguments and overflow flags) and on phase 10's batch
+    (`batch`)."""
+    base = _other_fold(a.baseline) if a.baseline else None
+    inputs = {f"row launch G=1 B={rows[0][1].shape[0]}": _fold_args(*rows),
+              "batch G=1 B=64": _fold_args(*batch)}
+    saved = {}
+    for (tag, fargs), key in zip(inputs.items(), ("row", "batch")):
+        _fold_probe(tag, fargs, smi, saved, key)
+    if a.save:
+        np.savez(a.save, fields=np.array(fs.PROBE_FIELDS), **saved)
+    for ln in ptxas_lines(build.build_report("fold_stats")):
+        print(f"ptxas {ln}", flush=True)
+    for tag, fargs in inputs.items():
+        ms, _ = _fold_ms(fargs)
+        bound, by = fold_bound_ms(fargs[2], fargs[3], 1,
+                                  fargs[1].shape[0])
+        G, LrP = fargs[0].shape
+        B, LqP = fargs[1].shape
+        smem, ref_s, q_s, warps, slices = fs.launch_plan(
+            G, B, LrP, LqP, pk.sm_count(dev), fs.smem_limit(dev))
+        print(f"fold {tag}: {ms:.3f} ms, bound {bound:.5f} ms ({by}); "
+              f"plan: {smem} B of shared memory (reference planes "
+              f"{'shared' if ref_s else 'device'}, query planes "
+              f"{'shared' if q_s else 'device'}, a ring of {fs.RING} "
+              f"entries a warp), {warps} warps x {slices} blocks, "
+              f"{fs.occupancy(smem, warps)} blocks an SM at most [{smi}]",
+              flush=True)
+    if base is None:
+        return
+    for tag, fargs in inputs.items():
+        times = {"baseline": [], "this": []}
+        outs = {}
+        for who in ("baseline", "this", "this", "baseline"):
+            ms, out = _fold_ms(fargs, base=base if who == "baseline"
+                               else None)
+            times[who].append(ms)
+            outs[who] = out
+        same = all(torch.equal(x, y) for x, y in zip(outs["baseline"],
+                                                     outs["this"]))
+        b_ms, t_ms = (" / ".join(f"{t:.3f}" for t in times[who])
+                      for who in ("baseline", "this"))
+        print(f"fold {tag}: baseline {b_ms} ms, this tree {t_ms} ms (mean "
+              f"of 3 after 3); stats and status equal: {same} [{smi}]",
+              flush=True)
+        if not same:
+            raise AssertionError(f"fold {tag}: the two kernels differ")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=256)
@@ -249,15 +425,19 @@ def main(argv=None) -> int:
                     help="first, the group dispatch's launches timed one "
                     "by one: after the first, after 20 s idle, after "
                     "emptying the allocator's cache")
-    ap.add_argument("--save", help="with --probe: .npz of every pair's "
-                    "counts")
+    ap.add_argument("--fold", action="store_true",
+                    help="only the fold kernel: its probe build's spans "
+                    "and counts, its times (and --baseline's in turns)")
+    ap.add_argument("--save", help="with --probe or --fold: .npz of every "
+                    "pair's counts")
     a = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("dispatch_probe: no CUDA device")
         return 1
     dev = torch.device("cuda", 0)
     smi = card_name_and_power()
-    base_lib = _other_kernels(a.baseline) if a.baseline else None
+    base_lib = (_other_kernels(a.baseline) if a.baseline and not a.fold
+                else None)
     _, codes = synth.viral_set(seed=a.seed, n=a.n)
     params = Params()
     eng = ce.CudaAll2All(codes, params, devices=[dev])
@@ -272,8 +452,11 @@ def main(argv=None) -> int:
     idx = ce.CudaRefIndex(codes[0], params, dev)
     # the automaton backend's launch of row 0 (its queries sorted by
     # length) and phase 10's batch (genome 0 x genomes 0-63)
-    rargs, _ = idx.rows_args(*eng.gather_qrows(qs, dev), eng.LqP)
-    bargs64, _ = idx.batch_args(codes[:64])
+    rargs, rovf = idx.rows_args(*eng.gather_qrows(qs, dev), eng.LqP)
+    bargs64, bovf = idx.batch_args(codes[:64])
+    if a.fold:
+        _fold(a, dev, smi, codes, params, (rargs, rovf), (bargs64, bovf))
+        return 0
     if a.timing:
         _timing(group_args(eng.build_group_index([0, 1, 2, 3], dev), B),
                 smi)

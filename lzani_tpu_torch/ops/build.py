@@ -6,9 +6,9 @@ with ctypes:
     seconds);
   * ``g++`` for the native C++ engine (``csrc/lzani_core.cpp``).
 A library lands in ``lzani_tpu_torch/_build/`` under a name keyed by a
-hash of the sources and the flags, so a stale build is never loaded (the
-lesson of the JAX package's executable cache: every input that changes
-compiled code keys the cache). The g++ build uses ``-march=native``, so
+hash of the sources, the headers they include and the flags, so a stale
+build is never loaded (the lesson of the JAX package's executable cache:
+every input that changes compiled code keys the cache). The g++ build uses ``-march=native``, so
 its key also holds the host's name: a checkout copied to another machine
 builds anew.
 """
@@ -19,6 +19,7 @@ import ctypes
 import hashlib
 import os
 import platform
+import re
 import shutil
 import subprocess
 import threading
@@ -52,17 +53,44 @@ def nvcc_path() -> str:
     return found
 
 
-def _build(name: str, sources: list[str], compiler: list[str],
-           flags: tuple, key: str, libs: tuple = ()) -> str:
-    """Compile `sources` with `compiler` unless the build keyed by their
-    hash, the flags and `key` already exists; returns its path."""
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.M)
+
+
+def _inputs(sources: list[str]) -> list[str]:
+    """`sources` and every file they include with ``#include "..."`` (from
+    the including file's directory, transitively), each once, in order."""
+    seen, todo = [], list(sources)
+    while todo:
+        path = os.path.abspath(todo.pop(0))
+        if path in seen:
+            continue
+        seen.append(path)
+        with open(path, "rb") as fh:
+            for inc in _INCLUDE.findall(fh.read()):
+                todo.append(os.path.join(os.path.dirname(path),
+                                         inc.decode()))
+    return seen
+
+
+def build_key(sources: list[str], flags: tuple, key: str) -> str:
+    """The hash that names a build: the text of `sources` and of the
+    headers they include, the flags and `key`."""
     h = hashlib.sha1()
-    for src in sources:
+    for src in _inputs(sources):
         with open(src, "rb") as fh:
             h.update(fh.read())
-    h.update(" ".join(flags + libs).encode())
+    h.update(" ".join(flags).encode())
     h.update(key.encode())
-    path = os.path.join(BUILD_DIR, f"lib{name}_{h.hexdigest()[:16]}.so")
+    return h.hexdigest()[:16]
+
+
+def _build(name: str, sources: list[str], compiler: list[str],
+           flags: tuple, key: str, libs: tuple = ()) -> str:
+    """Compile `sources` with `compiler` unless the build named by
+    ``build_key`` already exists; returns its path."""
+    path = os.path.join(BUILD_DIR,
+                        f"lib{name}_{build_key(sources, flags + libs, key)}"
+                        f".so")
     if os.path.exists(path):
         return path
     os.makedirs(BUILD_DIR, exist_ok=True)

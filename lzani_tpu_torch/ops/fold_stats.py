@@ -5,7 +5,7 @@ version.
 The JAX package's automaton backend (``--backend jax``,
 ``lzani_tpu/ops/engine_jax.py``) computes each pair's stats triple on
 the device: ``make_pair_parser`` (``lzani_tpu/ops/parse.py:78``) emits
-the factor list as it parses, and ``_component_stats`` (``:535``) folds
+the factor list as it parses, and ``_component_stats`` (``:536``) folds
 it. The port splits that work in two: the parse kernel
 (``parse_kernel.parse_events``) writes each pair's event log, and this
 kernel replays the log into the factor list and folds the triple, with
@@ -23,30 +23,45 @@ the host replay's consistency checks (``Parser::replay_events`` and
 Outputs: ``stats`` (G, B, 3) int32 {sym_in_matches, sym_in_literals,
 components}; ``status`` (G, B) int32: 0 ok, -1 a log the replay rejects
 (events out of order, bwd on a close match, bwd or ext unequal to the
-extension scans), 1 skipped (nev < 0); with ``want_factors`` also
-``fac`` (G, B, LqP + 4, 4) int32 {dpos, kind, rpos, len} and ``nfac``
-(G, B) int32, the first ``nfac`` entries of a pair defined.
+extension scans) or a factor list over the stack's capacity, 1 skipped
+(nev < 0); with ``want_factors`` also ``fac`` (G, B, LqP + 4, 4) int32
+{dpos, kind, rpos, len} and ``nfac`` (G, B) int32, the first ``nfac``
+entries of a pair defined.
 
 A caller marks the pairs it parses natively (capacity fallbacks) with
 nev = -1. The wrapper launches the kernel for CUDA tensors (or raises)
 and takes the plain version only for CPU tensors; it counts its
-launches. One thread per pair (csrc/fold_stats.cu says why).
+launches. The kernel runs one warp per pair on the parse kernel's bit
+planes, which it packs into scratch on the card; the reference's planes,
+each query's planes and the top of each pair's factor stack (a ring of
+RING entries) sit in shared memory where they fit (``launch_plan``,
+chosen by shape against the card's limit before the launch), and what
+does not fit is read from device memory (csrc/fold_stats.cu says why).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
 
 import torch
 
 from . import build
 from .parse import ParseCfg
+from .parse_kernel import sm_count
 from .prep import SYM_N_REF, SYM_N_SEQ
 
 SOURCE = os.path.join(build.CSRC, "fold_stats.cu")
 
 F_LIT, F_CLOSE, F_DISTANT = 0, 1, 2
+
+#: entries of the factor stack's top kept in shared memory, a warp (a
+#: power of two); the heaviest viral pair's stack reaches 894 entries
+RING = 2048
+
+#: warps a block of the kernel (its launch bound)
+MAX_WARPS = 8
 
 
 def stack_entries(LqP: int) -> int:
@@ -80,52 +95,178 @@ def _check(refbuf, qbuf, ev, nev, dsz, nrs):
                          "position range")
 
 
-def load() -> ctypes.CDLL:
-    """Build (at first use) and load the kernel's library."""
-    lib = build.load_library("fold_stats", [SOURCE])
-    fn = lib.lzt_fold_stats
-    if fn.argtypes is None:  # pointers and the stream must not be cut
-        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 14
-                       + [ctypes.c_void_p])
+#: per-pair int64 fields of the probe build (csrc/fold_stats.cu; ``load``
+#: checks their count against its lzt_fold_nprobe): the warp's span in
+#: cycles; events, backward scans, symbols scanned back and forward,
+#: symbols emitted in aligned ranges, gaps with their symbols, scanned
+#: positions and splits, pushes, top merges, region kills and their pops,
+#: the stack's deepest and final entries; cycles in records and the first
+#: pass, gaps, the capped backward scan, emission, kills and the stats;
+#: entries read below the shared-memory ring
+PROBE_FIELDS = ("span", "events", "bwd_scans", "bwd_syms", "fwd_syms",
+                "emit_syms", "gaps", "gap_syms", "gap_scan", "gap_split",
+                "pushes", "merges", "kills", "kill_pops", "max_n", "nfac",
+                "cyc_rec", "cyc_gap", "cyc_bwd", "cyc_emit", "cyc_kill",
+                "cyc_stats", "below_ring")
+NPROBE = len(PROBE_FIELDS)
+
+
+def set_argtypes(lib) -> None:
+    """Argument and result types of the C entries of `lib` (pointers and
+    the stream must not be cut to int)."""
+    lib.lzt_fold_stats.argtypes = ([ctypes.c_void_p] * 10
+                                   + [ctypes.c_int] * 14
+                                   + [ctypes.c_void_p] * 6
+                                   + [ctypes.c_int] * 6)
+    lib.lzt_fold_occupancy.argtypes = [ctypes.c_int, ctypes.c_int]
+    for fn in (lib.lzt_fold_stats, lib.lzt_fold_abi, lib.lzt_fold_nprobe,
+               lib.lzt_fold_smem_max, lib.lzt_fold_occupancy):
         fn.restype = ctypes.c_int
+
+
+@functools.lru_cache(maxsize=None)
+def load(probe: bool = False) -> ctypes.CDLL:
+    """Build (at first use) and load the kernel's library; `probe` builds
+    the probe variant (-DLZT_PROBE: per-pair spans and counts), a library
+    of its own name and build key. Checks the probe record's size against
+    PROBE_FIELDS."""
+    lib = (build.load_library("fold_stats_probe", [SOURCE], ("-DLZT_PROBE",))
+           if probe else build.load_library("fold_stats", [SOURCE]))
+    set_argtypes(lib)
+    if lib.lzt_fold_nprobe() != NPROBE:
+        raise RuntimeError(f"fold_stats: the library's probe records have "
+                           f"{lib.lzt_fold_nprobe()} fields, PROBE_FIELDS "
+                           f"{NPROBE}")
     return lib
 
 
+def launch_plan(G: int, B: int, LrP: int, LqP: int, n_sm: int,
+                smem_max: int, ring: int = RING):
+    """(shared bytes, reference planes in shared memory, query planes in
+    shared memory, warps a block, blocks a reference) of a launch over G
+    references x B queries at buckets LrP / LqP on a card of `n_sm` SMs
+    whose blocks may take `smem_max` bytes of dynamic shared memory
+    (``smem_limit``). A warp for each query, in blocks few enough in warps
+    that the G references' blocks cover the SMs; each warp's ring of
+    `ring` stack entries (8 bytes each) always, then the reference's three
+    planes of LrP / 32 words where they fit, then a slot for a query's
+    planes a warp where those fit too (and LqP / 32 is a multiple of 4,
+    for 16-byte copies). Raises when the rings alone do not fit."""
+    per_ref = max(1, -(-n_sm // max(G, 1)))
+    warps = min(MAX_WARPS, max(1, B // per_ref))
+    used = warps * ring * 8
+    if used > smem_max:
+        raise ValueError(f"fold_stats: {warps} rings of {ring} entries need "
+                         f"{used} bytes of shared memory, the card gives "
+                         f"{smem_max}")
+    ref_bytes = 3 * (LrP // 32) * 4
+    ref_smem = used + ref_bytes <= smem_max
+    used += ref_bytes if ref_smem else 0
+    q_bytes = warps * 3 * (LqP // 32) * 4
+    q_smem = (LqP // 32) % 4 == 0 and used + q_bytes <= smem_max
+    used += q_bytes if q_smem else 0
+    return used, ref_smem, q_smem, warps, max(1, -(-B // warps))
+
+
+@functools.lru_cache(maxsize=None)
+def smem_limit(dev: torch.device) -> int:
+    """Dynamic shared memory (bytes) a block of the kernel may take on the
+    card `dev` (its opt-in limit less the kernel's static shared memory;
+    H100: 227 KiB); raises on an error."""
+    with torch.cuda.device(dev):
+        n = load().lzt_fold_smem_max()
+    if n < 0:
+        raise RuntimeError("fold_stats: shared-memory limit query failed")
+    return n
+
+
+def occupancy(smem: int, warps: int) -> int:
+    """Blocks of `warps` warps with `smem` shared bytes that one SM holds at
+    once, on the current card (the occupancy API); raises on an error."""
+    n = load().lzt_fold_occupancy(smem, warps)
+    if n < 0:
+        raise RuntimeError("fold_stats: occupancy query failed")
+    return n
+
+
 def fold_stats(refbuf, qbuf, ev, nev, dsz, nrs, cfg: ParseCfg,
-               want_factors: bool = False):
+               want_factors: bool = False, smem_max: int | None = None,
+               ring: int = RING):
     """(stats, status) of every pair, or (stats, status, fac, nfac) with
     `want_factors` (see module doc). CUDA tensors launch the kernel; CPU
-    tensors take the plain version."""
+    tensors take the plain version. `smem_max`: the shared bytes a block
+    may take (None: the card's limit; the rings alone keep the planes in
+    device memory), `ring`: the stack entries a warp keeps in shared
+    memory (a power of two)."""
     _check(refbuf, qbuf, ev, nev, dsz, nrs)
     if refbuf.device.type == "cpu":
         return fold_stats_plain(refbuf, qbuf, ev, nev, dsz, nrs, cfg,
                                 want_factors)
+    out = _launch(load(), refbuf, qbuf, ev, nev, dsz, nrs, cfg,
+                  want_factors, smem_max=smem_max, ring=ring)
+    fold_stats.launches += 1
+    return out[:4] if want_factors else out[:2]
+
+
+def fold_stats_probe(refbuf, qbuf, ev, nev, dsz, nrs, cfg: ParseCfg):
+    """``fold_stats`` through the probe build (CUDA tensors only; not
+    counted as a launch): (stats, status, counts), counts (G, B, NPROBE)
+    int64, each pair's PROBE_FIELDS."""
+    _check(refbuf, qbuf, ev, nev, dsz, nrs)
+    counts = torch.zeros((*nev.shape, NPROBE), dtype=torch.int64,
+                         device=refbuf.device)
+    stats, status = _launch(load(probe=True), refbuf, qbuf, ev, nev, dsz,
+                            nrs, cfg, False, counts)[:2]
+    return stats, status, counts
+
+
+def _launch(lib, refbuf, qbuf, ev, nev, dsz, nrs, cfg, want_factors,
+            probe=None, smem_max: int | None = None, ring: int = RING):
+    """Allocate the outputs and the scratch and launch `lib`'s C entry on
+    the current stream of refbuf's device; raises when the launch is
+    refused. Returns (stats, status, stack, nfac)."""
+    G, LrP = refbuf.shape
+    B, LqP = qbuf.shape
+    if LrP % 128 or LqP % 32:
+        # plane rows of whole words, the reference's copied in 16-byte
+        # chunks
+        raise ValueError(f"fold_stats: LrP {LrP} must be a multiple of 128 "
+                         f"and LqP {LqP} of 32")
+    if ring < 2 or ring & (ring - 1):
+        raise ValueError(f"fold_stats: ring {ring} is not a power of two")
     dev = refbuf.device
     if dev.type != "cuda":
         raise ValueError(f"fold_stats: unsupported device {dev}")
-    G, LrP = refbuf.shape
-    B, LqP = qbuf.shape
     F = stack_entries(LqP)
     words = 4 if want_factors else 2
-    stats = torch.empty((G, B, 3), dtype=torch.int32, device=dev)
-    status = torch.empty((G, B), dtype=torch.int32, device=dev)
-    nfac = torch.empty((G, B), dtype=torch.int32, device=dev)
-    stack = torch.empty((G, B, F, words), dtype=torch.int32, device=dev)
+    i32 = dict(dtype=torch.int32, device=dev)
+    stats = torch.empty((G, B, 3), **i32)
+    status = torch.empty((G, B), **i32)
+    nfac = torch.empty((G, B), **i32)
+    stack = torch.empty((G, B, F, words), **i32)
     with torch.cuda.device(dev):
+        smem, ref_smem, q_smem, warps, slices = launch_plan(
+            G, B, LrP, LqP, sm_count(dev),
+            smem_limit(dev) if smem_max is None else smem_max, ring)
+        rpl = torch.empty((G, 3, LrP // 32), **i32)
+        qpl = torch.empty((B, 3, LqP // 32), **i32)
+        order = torch.argsort(dsz, descending=True,
+                              stable=True).to(torch.int32)
+        next_q = torch.zeros(G, **i32)
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = load().lzt_fold_stats(
+        rc = lib.lzt_fold_stats(
             refbuf.data_ptr(), qbuf.data_ptr(), ev.data_ptr(),
             nev.data_ptr(), dsz.data_ptr(), nrs.data_ptr(),
             stats.data_ptr(), status.data_ptr(), stack.data_ptr(),
             nfac.data_ptr(), G, B, LrP, LqP, ev.shape[2], F, words, cfg.msl,
-            cfg.mrd, cfg.mqd, cfg.reg, cfg.aw, cfg.am, cfg.ar, stream)
+            cfg.mrd, cfg.mqd, cfg.reg, cfg.aw, cfg.am, cfg.ar, stream,
+            0 if probe is None else probe.data_ptr(), rpl.data_ptr(),
+            qpl.data_ptr(), order.data_ptr(), next_q.data_ptr(), smem,
+            int(ref_smem), int(q_smem), ring, warps, slices)
     if rc != 0:
         raise RuntimeError(f"fold_stats: kernel launch failed (cudaError "
                            f"{rc})")
-    fold_stats.launches += 1
-    if want_factors:
-        return stats, status, stack, nfac
-    return stats, status
+    return stats, status, stack, nfac
 
 
 #: kernel launches since the last reset (plain-version calls never count)

@@ -48,7 +48,8 @@ def ptxas_lines(report: str) -> list[str]:
             name = ln.split("'")[1] if "'" in ln else ln.split()[-1]
             kern = name
             for short in ("parse_group_kernel", "parse_big_kernel",
-                          "pack_planes_kernel", "fold_stats"):
+                          "pack_planes_kernel", "fold_kernel",
+                          "fold_stats"):
                 if short in name:
                     kern = short + ("<true>" if "ILb1E" in name else
                                     "<false>" if "ILb0E" in name else "")

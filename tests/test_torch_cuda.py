@@ -1,7 +1,10 @@
-"""The CUDA parse kernels on a card (group and long-genome paths): their
-event logs equal their plain PyTorch versions' and the native oracle's,
-the group kernel's capacity semantics match, and the wrappers count
-launches. Every test here is marked ``cuda`` and skips
+"""The CUDA kernels on a card. The parse kernels (group and long-genome
+paths): their event logs equal their plain PyTorch versions' and the
+native oracle's, the group kernel's capacity semantics match. The fold
+kernel: stats, status and factors equal to its plain version on the
+edge inputs of test_torch_fold_kernel.py, on corrupted logs and on
+blocks of several warps, with its planes in shared or device memory and
+with a small ring. The wrappers count launches. Every test here is marked ``cuda`` and skips
 without a card. On a card:
 
     python -m pytest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
@@ -20,6 +23,7 @@ from lzani_tpu_torch.ops.parse_kernel import (parse_events,
                                               parse_events_big_plain,
                                               parse_events_plain)
 from lzani_tpu_torch.synth import mutate, rand_params, small_family
+from test_torch_fold_kernel import EDGES, kernel_args
 
 pytestmark = pytest.mark.cuda
 
@@ -685,3 +689,109 @@ def test_fold_kernel_matches_plain_and_all2all_jax_matches_native(dev):
     out = tej.all2all_jax(codes, tp, device=[dev, dev], stats=st2)
     assert np.array_equal(out, tne.all2all(codes, tp))
     assert st2["launches"] == st2["fold_launches"] == 2 * 32
+
+
+def _same_fold(got, want, tag):
+    """Stats, status, factor counts and each pair's defined factors of two
+    fold launches (got on the card, want on the CPU) equal."""
+    stats, status, fac, nfac = (t.cpu() for t in got)
+    w_stats, w_status, w_fac, w_nfac = want
+    assert torch.equal(status, w_status), tag
+    assert torch.equal(stats, w_stats), tag
+    assert torch.equal(nfac, w_nfac), tag
+    for g in range(nfac.shape[0]):
+        for b in range(nfac.shape[1]):
+            k = int(w_nfac[g, b])
+            assert torch.equal(fac[g, b, :k], w_fac[g, b, :k]), (tag, g, b)
+
+
+def _fold_placements(dev, cpu_args, cfg, tag):
+    """The fold kernel with the launch plan the shapes choose, with its
+    planes read from device memory (a shared-memory limit that only the
+    ring fits) and with a ring of 32 entries (the stack's bottom in device
+    memory), with and without factors, each equal to the plain version."""
+    from lzani_tpu_torch.ops import fold_stats as fs
+
+    want = fs.fold_stats_plain(*cpu_args, cfg, want_factors=True)
+    args = [a.to(dev) for a in cpu_args]
+    n0 = fs.fold_stats.launches
+    G, LrP = args[0].shape
+    B, LqP = args[1].shape
+    warps = fs.launch_plan(G, B, LrP, LqP, pk.sm_count(dev),
+                           fs.smem_limit(dev))[3]
+    placements = ({}, {"smem_max": warps * fs.RING * 8}, {"ring": 32})
+    for kw in placements:
+        _same_fold(fs.fold_stats(*args, cfg, want_factors=True, **kw), want,
+                   f"{tag} {kw}")
+        stats, status = fs.fold_stats(*args, cfg, **kw)
+        assert torch.equal(status.cpu(), want[1]), (tag, kw)
+        assert torch.equal(stats.cpu(), want[0]), (tag, kw)
+    assert fs.fold_stats.launches == n0 + 2 * len(placements)
+    return want
+
+
+@pytest.mark.parametrize("name", list(EDGES))
+def test_fold_kernel_on_an_edge_input(dev, name):
+    """The fold kernel on each edge input of test_torch_fold_kernel.py (the
+    oracle's event log) equals its plain version in every placement
+    (``_fold_placements``), status 0."""
+    from lzani_tpu_torch.ops.parse import ParseCfg
+
+    ref, q, p = EDGES[name]
+    want = _fold_placements(dev, kernel_args(ref, q, p),
+                            ParseCfg.from_params(p), name)
+    assert want[1].tolist() == [[0]]
+
+
+@pytest.mark.parametrize("field,delta", [(3, 1), (4, 1), (4, -1),
+                                         (0, 10**6)],
+                         ids=["bwd", "ext_up", "ext_down", "order"])
+def test_fold_kernel_rejects_a_corrupted_log(dev, field, delta):
+    """The corrupted logs of test_torch_engine_jax.py's
+    test_a_corrupted_log_is_rejected on the card: every pair with a log
+    has status -1 and no stats, the pair without one status 1, in every
+    placement, equal to the plain version."""
+    from test_torch_engine_jax import CASES, fold_args
+
+    from lzani_tpu_torch.ops.parse import ParseCfg
+
+    p = Params()
+    refs = [CASES["subs2pct"][0], CASES["translocation"][0]]
+    qs = [CASES[k][1] for k in ("subs2pct", "indels", "translocation")]
+    R, Q, E, N, D, NR = fold_args(refs, qs, p)
+    R = torch.nn.functional.pad(R, (0, -R.shape[1] % 128), value=4)
+    Q = torch.nn.functional.pad(Q, (0, -Q.shape[1] % 128), value=5)
+    for g in range(N.shape[0]):
+        for b in range(N.shape[1]):
+            E[g, b, int(N[g, b]) // 2, field] += delta
+    N[1, 2] = -1
+    want = _fold_placements(dev, (R, Q, E, N, D, NR),
+                            ParseCfg.from_params(p), f"{field} {delta}")
+    assert want[1].tolist() == [[-1, -1, -1], [-1, -1, 1]]
+    assert not want[0].any()
+
+
+def test_fold_kernel_with_several_warps_a_block(dev):
+    """A launch whose blocks hold several warps (three references x 280
+    random-parameter queries: the plan gives each block two warps, which
+    share the reference's planes and take queries from one counter) equals
+    the plain version in every placement."""
+    from test_torch_engine_jax import fold_args
+
+    from lzani_tpu_torch.ops import fold_stats as fs
+    from lzani_tpu_torch.ops.parse import ParseCfg
+
+    rng = np.random.RandomState(31)
+    p = rand_params(rng)
+    fam = small_family()
+    qs = [mutate(rng, fam[k % 3], 0.05, n_ns=1, indels=2)[:300 + k]
+          for k in range(280)]
+    R, Q, E, N, D, NR = fold_args(fam[:3], qs, p)
+    R = torch.nn.functional.pad(R, (0, -R.shape[1] % 128), value=4)
+    Q = torch.nn.functional.pad(Q, (0, -Q.shape[1] % 128), value=5)
+    warps = fs.launch_plan(3, 280, R.shape[1], Q.shape[1],
+                           pk.sm_count(dev), fs.smem_limit(dev))[3]
+    assert warps >= 2
+    want = _fold_placements(dev, (R, Q, E, N, D, NR),
+                            ParseCfg.from_params(p), "several warps")
+    assert (want[1] == 0).all()
