@@ -45,8 +45,10 @@ non-zero):
      of two viral families plus a tandem-repeat pair whose k-mers have
      ~150 candidates: G = 10 x B = 16) and one at the main path's shapes
      (the 6 bacterial genomes below: G = 6 x B = 8 at LqP = 2^23); every
-     pair's nev and defined records equal; 4 within-species logs of the
-     full launch against the native oracle;
+     pair's nev and defined records equal; that launch's plan (warps a
+     block, blocks) and its probe build's heaviest pair (warp span and
+     counts by kind of step), the probe build's logs equal; 4
+     within-species logs of the full launch against the native oracle;
   9. the port's CLI ``--backend cuda`` and ``--backend native`` on
      ``synth.bacterial_set(2024)`` (two species, 3.0 and 5.0 Mb bases
      with two relatives each: 30 ordered pairs): TSV and ids byte-equal,
@@ -126,7 +128,8 @@ also has the hybrid, round-robin and two-process paths' launches, the
 launches of each instantiation, its ms at the three launch shapes of the
 main paths (4 x 256, 1 x 64, 1 x 255), the launches before phase 3's
 timed ones (``event_ms``'s series), the device-memory instantiation's
-checks and the heaviest pair's span), and the result line last.
+checks and the heaviest pair's span; the long-genome kernel's its
+launch plan and heaviest pair), and the result line last.
 Without a CUDA device the script exits 1 and prints no result.
 """
 
@@ -271,17 +274,19 @@ def check_device_words(args, ref, reps=3):
     return dict(ms=ms, records=records, max_abs_err=err)
 
 
-def probe_heaviest(args, ref):
-    """Phase 3c: the probe build of the group kernel (-DLZT_PROBE) on phase
-    3's dispatch, its logs equal to `ref`'s: the pair of longest warp span
-    (clock64() cycles) with its counts by kind of step, and the SM clock
-    (MHz, now and at most) read just after."""
+def probe_heaviest(args, ref, big=False):
+    """Phase 3c (phase 8 with `big`): the probe build of the group (the
+    long-genome) kernel (-DLZT_PROBE) on that phase's launch, its logs
+    equal to `ref`'s (the kernel's, equal to the plain version's): the
+    pair of longest warp span (clock64() cycles) with its counts by kind
+    of step, and the SM clock (MHz, now and at most) read just after."""
     from lzani_tpu_torch.ops import parse_kernel as pk
     from lzani_tpu_torch.utils.runinfo import sm_clock_mhz
 
     G, B = args[3].shape[:2]
-    ev, nev, probe = pk.parse_events_probe(*args)
-    same_logs("probe build", ev, nev, "phase 3's plain", ref["ev"],
+    probe_fn = pk.parse_events_big_probe if big else pk.parse_events_probe
+    ev, nev, probe = probe_fn(*args)
+    same_logs("probe build", ev, nev, "the plain version", ref["ev"],
               ref["nev"])
     pr = probe.reshape(G * B, pk.NPROBE).cpu().numpy()
     j = int(pr[:, 0].argmax())
@@ -329,8 +334,9 @@ def reduced_big_set():
 
 def check_big_kernel(dev, bact_codes, bact_names, params):
     """Phase 8: the big kernel against its plain version on a reduced
-    launch and on the main path's first launch over the bacterial set;
-    4 within-species logs of the latter against the oracle."""
+    launch and on the main path's first launch over the bacterial set,
+    with that launch's plan and its probe build's heaviest pair; 4
+    within-species logs of the latter against the oracle."""
     import numpy as np
 
     from lzani_tpu_torch.core import native_engine as ne
@@ -344,7 +350,10 @@ def check_big_kernel(dev, bact_codes, bact_names, params):
     eng, r_list, args = big_launch(dev, bact_codes, params)
     full = kernel_vs_plain(parse_events_big, parse_events_big_plain, args,
                            args[6], reps=2)
-    full.update(G=eng.G_big, B=eng.B_big, LqP=eng.LqP, LrP=eng.LrP_big)
+    full.update(G=eng.G_big, B=eng.B_big, LqP=eng.LqP, LrP=eng.LrP_big,
+                heavy=probe_heaviest(args, full, big=True))
+    warps, blocks = parse_events_big.last_plan    # the timed launches
+    full["plan"] = dict(warps=warps, blocks=blocks)
     logs = eng.collect_big((full["ev"], full["nev"]))
     species = [n.split("_")[0] for n in bact_names]
     within = [(r, q) for r in r_list for q in range(eng.B_big)
@@ -1116,9 +1125,8 @@ def main() -> int:
     from lzani_tpu_torch.core import native_engine
     from lzani_tpu_torch.ops import fold_stats
     from lzani_tpu_torch.ops.build import build_report
-    from lzani_tpu_torch.ops.parse_kernel import (launch_plan, sm_count,
-                                                  smem_limit)
     from lzani_tpu_torch.ops.parse_kernel import load as load_kernels
+    from lzani_tpu_torch.ops.parse_kernel import sm_count
     from lzani_tpu_torch.ops.parse_kernel import (occupancy, parse_events,
                                                   parse_events_big,
                                                   parse_events_plain)
@@ -1161,7 +1169,7 @@ def main() -> int:
     names, codes = synth.viral_set(seed=SEED, n=N_GENOMES)
     params = Params()
     k = check_kernel(dev, codes, params)
-    plan = launch_plan(4, k["B"], k["LrP"], sm_count(dev), smem_limit(dev))
+    plan = parse_events.last_plan                 # the timed launches
     k["plan"] = dict(smem=plan[0], warps=plan[1], blocks_per_ref=plan[2],
                      blocks_per_sm_max=occupancy(plan[0], plan[1]))
     say(3, f"kernel == plain on one dispatch (G=4, B={k['B']}, "
@@ -1236,6 +1244,8 @@ def main() -> int:
                f"{full['pairs']} pairs, {full['records']} records equal; "
                f"kernel {full['ms']:.1f} ms, plain {full['plain_ms']:.1f} ms,"
                f" bound {full['bound_ms']:.3f} ms ({full['bound_by']}); "
+               f"launch plan {json.dumps(full['plan'])}; probe build, logs "
+               f"equal, the heaviest pair {json.dumps(full['heavy'])}; "
                f"oracle equal on {', '.join(full['oracle'])} [{smi}]")
 
         n_bact = len(bact_codes)
@@ -1490,7 +1500,8 @@ def main() -> int:
          "bound_ms": full["bound_ms"], "bound_by": full["bound_by"],
          "library_ms": None, "reduced_ms": red["ms"],
          "reduced_plain_ms": red["plain_ms"],
-         "reduced_bound_ms": red["bound_ms"]},
+         "reduced_bound_ms": red["bound_ms"],
+         "launch_plan": full["plan"], "heaviest_pair": full["heavy"]},
         {"name": "fold_stats", "route": "cuda",
          "source": "lzani_tpu_torch/csrc/fold_stats.cu",
          "replaces": "lzani_tpu/ops/parse.py:536",

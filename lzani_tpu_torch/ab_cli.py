@@ -3,13 +3,14 @@
     python -m lzani_tpu_torch.ab_cli --tree OLD_DIR --tree NEW_DIR \\
         [--set viral|bacterial] [--n 256] [--seed 2024] \\
         [--backend auto] [--backend hybrid] [--backend cuda] \\
-        [--backend native]
+        [--backend native] [--rounds 1]
 
 Writes one seeded synthetic FASTA (``synth.viral_set`` of `n` genomes, or
 ``synth.bacterial_set`` with ``--mal 20 --msl 11 --reg 80``), then, per
 backend, runs ``python -m lzani_tpu_torch all2all`` from each checkout in
-turns (A, B, B, A) as a subprocess with ``-V 2``. Each checkout first
-runs once per backend, untimed, on a two-genome file, so that what it
+turns (A, B, B, A), ``--rounds`` times over, as a subprocess with
+``-V 2``. Each checkout first runs once per backend, untimed, on a
+two-genome file, so that what it
 builds at first use (the kernels, the native engine) is not timed (for
 ``hybrid`` and ``auto`` that run is a ``cuda`` one: on two genomes the
 hybrid's warm-up never starts, so it would build nothing).
@@ -46,6 +47,8 @@ def main(argv=None) -> int:
     ap.add_argument("--n", type=int, default=256)
     ap.add_argument("--seed", type=int, default=2024)
     ap.add_argument("--backend", action="append")
+    ap.add_argument("--rounds", type=int, default=1,
+                    help="times the turns (A, B, B, A) are run")
     a = ap.parse_args(argv)
     trees = [os.path.abspath(t) for t in a.tree]
     smi = card_name_and_power()
@@ -92,7 +95,7 @@ def main(argv=None) -> int:
             for tree in these:
                 cli(tree, "cuda" if backend in HYBRID_BACKENDS else backend,
                     tiny, os.path.join(td, "tiny.tsv"))
-            for k, tree in enumerate(these + these[::-1]):
+            for k, tree in enumerate((these + these[::-1]) * a.rounds):
                 out = os.path.join(td, f"{backend}_{k}.tsv")
                 wall, res = cli(tree, backend, fa, out)
                 with open(out, "rb") as f1, \

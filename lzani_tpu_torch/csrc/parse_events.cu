@@ -41,7 +41,8 @@
 //     misses leaving it); for aw <= 32 the leaving misses are the last 64
 //     positions' mask shifted by aw, above that the mask at offset -aw.
 //     The scan stops at the first lane over am; the result is the last
-//     match before it that ends a run of >= ar.
+//     match before it that ends a run of >= ar. The long-genome kernel
+//     scans 4,096 offsets a step (ext_wide, below).
 // Symbols past a buffer's semantic end read as N, which bounds every LCE
 // and scan without caps.
 //
@@ -97,16 +98,35 @@
 // for candidate and query words, the extensions' 21% for query words,
 // the anchor search's 19% for position-list entries; the seed window
 // takes 5% (dispatch_probe.py --probe; NVIDIA H100 80GB HBM3, 700.00 W).
-// Long-genome path (lzt_parse_events_big): references of up to 2^25
-// symbols cannot live in shared memory; its kernel keeps one-byte symbols
-// in device memory, one warp per pair in pair order, four warps a block
-// (spreading its 48 pairs one warp a block gained nothing: 76.10 against
-// 75.15-75.20 ms, dispatch_probe.py --baseline, NVIDIA H100 80GB HBM3,
-// 700.00 W). Its candidate table has a start and an unbounded count plane
-// per pair (the reference's ht_long probe chains are unbounded too), and
-// per-pair query lengths (the self pair gets dsz = msl: a no-op). Offsets
-// of per-pair planes are size_t (pair x LqP exceeds 2^31 at long-genome
-// sizes); positions fit in int (LrP <= 2^26).
+// Long-genome path (lzt_parse_events_big), designed for Hopper.
+// References of up to 2^25 symbols cannot live in shared memory, so both
+// sides' planes (packed as above, a query's to its longest pair, which a
+// shorter pair reads as N past its own dsz) are read from device memory,
+// through the automaton of the group kernel: the same word compares and
+// literal-run lookahead, with a two-plane candidate table (a start and
+// an unbounded count: the reference's ht_long probe chains are unbounded
+// too) whose 32 positions' words are held a lane. What bounds it is
+// again the chain of dependent steps of the heaviest pair, but here its
+// extensions: between bacterial relatives (3-9% substitutions) the
+// approximate extensions cover the whole genome, 5.0 M offsets in 22-65
+// events. The one-byte kernel this replaces spent 99% of its 152.6 M
+// cycle span there, 972 cycles a 32-offset step (74.8 ms a launch of 6 x
+// 8 pairs at LqP 2^23), and the word automaton alone still 87.4 M (560
+// cycles a step). So:
+//   * the extensions scan 4,096 offsets a warp step (ext_wide in
+//     planes.cuh: a lane takes four 32-offset words and holds every
+//     window it needs, one vote a step), the next step's plane words
+//     loaded before this step's are examined;
+//   * a warp a pair, one a block while the pairs are no more than the
+//     SMs (a pair is one chain; the launch lasts as long as its slowest),
+//     the pairs taken longest first from a counter.
+// The launch went to 1.7 ms of device time (parse 1.61 ms, plane packs
+// 0.08 ms); its heaviest pair, 3.34 M cycles, is 84% extension steps of
+// about 1,400 cycles (2,300 between the two 9% relatives, whose window
+// counts take the dense path), the instructions of one warp
+// (dispatch_probe.py --big --probe; NVIDIA H100 80GB HBM3, 700.00 W).
+// Offsets of per-pair planes are size_t (pair x LqP exceeds 2^31);
+// positions fit in int (LrP <= 2^26: 2^21 words a plane).
 // ============================================================================
 
 #include <climits>
@@ -118,12 +138,11 @@
 namespace {
 
 constexpr int SAT = 27;  // 1 - 4^-l == 1.0 in f64 for l >= 27 (anchor_tables)
-constexpr int WARPS_BIG = 4;   // warps per block of the long-genome kernel
-constexpr int MAX_WARPS = 8;   // warps per block of the group kernel
+constexpr int MAX_WARPS = 8;   // warps per block of either kernel
 constexpr int SEED_CHUNKS = 4; // 32-position chunks of a seed-window pass
 
-// Probe build (-DLZT_PROBE, dispatch_probe.py --probe): per pair of the
-// group kernel, the warp's clock64() span and counts by kind of step.
+// Probe build (-DLZT_PROBE, dispatch_probe.py --probe): per pair of
+// either kernel, the warp's clock64() span and counts by kind of step.
 enum {
     PR_SPAN, PR_STEPS, PR_JUMPS, PR_ANC_CAND, PR_ANC_LCE, PR_SYNCED,
     PR_SYNCED_LIT, PR_SEED_CHUNKS, PR_SEED_LOADS, PR_SEED_HITS,
@@ -171,152 +190,79 @@ struct PackedCand {
     }
 };
 
-// Long-genome path: (G, B, 2, LqP) planes, start then unbounded count.
+// Long-genome path: (G, B, 2, LqP) planes, start then an unbounded count
+// (the reference's ht_long probe chains are unbounded too). As
+// PackedCand: the start and count of 32 positions from `base` held one
+// of each a lane, loaded (coalesced) where a step finds none held or
+// ahead, at an event's end.
 struct TwoPlaneCand {
     const int32_t* st;
     const int32_t* ct;
-    __device__ TwoPlaneCand(const int32_t* cand, size_t pair, int LqP)
-        : st(cand + pair * 2 * LqP), ct(st + LqP) {}
+    int LqP;
+    int base = INT_MIN;
+    int s_mine = 0, c_mine = 0;
+    __device__ TwoPlaneCand(const int32_t* cand, size_t pair, int lqp)
+        : st(cand + pair * 2 * lqp), ct(st + lqp), LqP(lqp) {}
+    __device__ __forceinline__ void load(int i, int lane) {
+        base = i;
+        const bool in = i + lane < LqP;
+        s_mine = in ? st[i + lane] : 0;
+        c_mine = in ? ct[i + lane] : 0;
+    }
     __device__ __forceinline__ void get(int i, int& start, int& cnt,
-                                        int) const {
-        start = st[i];
-        cnt = ct[i];
+                                        int lane) {
+        if (i < base || i >= base + LANES) load(i, lane);
+        start = __shfl_sync(FULL, s_mine, i - base);
+        cnt = __shfl_sync(FULL, c_mine, i - base);
+    }
+    __device__ __forceinline__ int first_with(int i, int n, int lane) {
+        if (i < base || i >= base + LANES) load(i, lane);
+        n = min(n, base + LANES - i);
+        const unsigned m = __ballot_sync(FULL, c_mine != 0) >> (i - base);
+        const unsigned mn = n >= LANES ? m : m & ((1u << n) - 1);
+        return mn ? __ffs(mn) - 1 : n;
     }
 };
 
 // ---------------------------------------------------------------------------
-// long-genome path: one-byte symbols in device memory
+// symbols: bit-plane words, the reference in shared or device memory
 // ---------------------------------------------------------------------------
 
-struct ByteSyms {
-    const uint8_t* ref;  // composite reference buffer (row g)
-    int nr;              // composite length
-    const uint8_t* q;    // query buffer (row b)
-    int dsz;             // query length + mrd
-
-    __device__ __forceinline__ int r(int p) const {
-        return (p >= 0 && p < nr) ? (int)ref[p] : SYM_N_REF;
-    }
-    __device__ __forceinline__ int qs(int p) const {
-        return (p >= 0 && p < dsz) ? (int)q[p] : SYM_N_SEQ;
-    }
-
-    // Longest common extension of ref[rp..] and q[qp..], known equal below
-    // `from` (Parser::match_len), 32 offsets per step.
-    __device__ int lce(int rp, int qp, int from, int lane) const {
-        for (int o = from;; o += LANES) {
-            const unsigned m = __ballot_sync(
-                FULL, r(rp + o + lane) != qs(qp + o + lane));
-            if (m) return o + __ffs(m) - 1;
-        }
-    }
-
-    __device__ void anchor(const int32_t* pos, int start, int cnt, int i,
-                           const Cfg& c, int lane, int& a_len, int& a_pos,
-                           long long* pc) {
-        a_len = a_pos = 0;
-        for (int k = 0; k < cnt; ++k) {
-            const int p = pos[start + k];
-            const int ml = lce(p, i, 0, lane);
-            if (ml >= c.mal && ml > a_len) {
-                a_len = ml;
-                a_pos = p;
-            }
-        }
-    }
-
-    // each lane checks the msl-prefix at its positions; each survivor, in
-    // ascending position, gets the warp's LCE
-    __device__ void seed(int i, int pred, int lit_run, const Cfg& c,
-                         int lane, int& s_len, int& s_pos, long long* pc) {
-        s_len = s_pos = 0;
-        const int hi = pred + c.mrd;
-        for (int base = max(0, pred - lit_run); base < hi; base += LANES) {
-            const int p = base + lane;
-            bool hit = p < hi;
-            for (int t = 0; hit && t < c.msl; ++t)
-                hit = r(p + t) == qs(i + t);
-            PROBE(++pc[PR_SEED_CHUNKS]);
-            for (unsigned S = __ballot_sync(FULL, hit); S; S &= S - 1) {
-                PROBE(++pc[PR_SEED_HITS]);
-                const int ps = base + __ffs(S) - 1;
-                const int ml = lce(ps, i, c.msl, lane);
-                if (ml > s_len ||
-                    (ml == s_len && abs(ps - pred) < abs(s_pos - pred))) {
-                    s_len = ml;
-                    s_pos = ps;
-                }
-            }
-        }
-    }
-
-    // no lookahead over literal steps: each is a step of its own
-    template <class Cand>
-    __device__ __forceinline__ int literal_run(Cand&, int, int, int, int,
-                                               const Cfg&, int) const {
-        return 0;
-    }
-    template <class Cand>
-    __device__ __forceinline__ void prefetch(Cand&, int, int) {}
-
-    template <bool FWD>
-    __device__ __forceinline__ bool miss_at(int dpos, int rpos, int e) const {
-        return FWD ? qs(dpos + e) != r(rpos + e)
-                   : qs(dpos - 1 - e) != r(rpos - 1 - e);
-    }
-
-    // Sliding-window approximate extension: bad(e) = carry + misses
-    // entering in [base, e] - misses leaving, 32 positions per step.
-    template <bool FWD>
-    __device__ int ext(const Cfg& c, int dpos, int rpos, int max_len,
-                       int lane, long long& steps) const {
-        const unsigned le = FULL >> (31 - lane);  // lanes <= this one
-        int carry = 0;             // misses in the window at base-1
-        int lastmiss = -1 - c.ar;  // the virtual run before e = 0
-        int last = 0;
-        unsigned prev = 0;         // miss mask of the last step
-        for (int base = 0; base < max_len; base += LANES) {
-            PROBE(++steps);
-            const int e = base + lane;
-            const bool in = e < max_len;
-            const bool miss = in && miss_at<FWD>(dpos, rpos, e);
-            const unsigned M = __ballot_sync(FULL, miss);
-            unsigned O;  // lanes whose window drops a miss (e - aw)
-            if (c.aw <= LANES) {
-                O = (unsigned)((((unsigned long long)M << LANES) | prev)
-                               >> (LANES - c.aw));
-            } else {
-                O = __ballot_sync(FULL, in && e >= c.aw &&
-                                            miss_at<FWD>(dpos, rpos, e - c.aw));
-            }
-            const int bad = carry + __popc(M & le) - __popc(O & le);
-            const unsigned S = __ballot_sync(FULL, !in || bad > c.am);
-            const unsigned Mle = M & le;
-            const int lm = Mle ? base + top_bit(Mle) : lastmiss;
-            unsigned Q = __ballot_sync(FULL, in && !miss && e - lm >= c.ar);
-            if (S) Q &= (1u << (__ffs(S) - 1)) - 1;  // lanes before the stop
-            if (Q) last = base + top_bit(Q) + 1;
-            if (S) break;
-            carry += __popc(M) - __popc(O);
-            if (M) lastmiss = base + top_bit(M);
-            prev = M;
-        }
-        return last;
-    }
-};
-
-// ---------------------------------------------------------------------------
-// group path: bit-plane words, the reference in shared or device memory
-// ---------------------------------------------------------------------------
-
+// The query reads N at and past the pair's dsz: its planes may be
+// packed to a longer pair's length (the long-genome path packs a query
+// to its longest pair), so the last word within dsz gets `tail` and the
+// words past it are outside Q.nw.
+// WIDE: the extensions 4,096 offsets a warp step (ext_wide) where the
+// parameters allow, else 32 (ext_scan). The choice follows the genome
+// size, through the engine's routing of a row to either kernel: between
+// bacterial relatives (the long-genome kernel) the extensions run to
+// megabases, and ext_wide took the heaviest pair from 87.4 M to 3.34 M
+// cycles; between viral relatives (the group kernel) most scans stop
+// within their first 32 offsets (996 forward scans took 996 steps in the
+// heaviest pair), the words a wide step examines past an early stop are
+// dense in mismatches, and ext_wide made the group dispatch 4.2x slower
+// (dispatch_probe.py --big --probe, --baseline; NVIDIA H100 80GB HBM3,
+// 700.00 W).
+template <bool WIDE>
 struct WordSyms {
     Planes R, Q;
     int nr, dsz;
+    uint32_t tail;       // N bits of query word Q.nw - 1 at and past dsz
     int q_at = INT_MIN;  // query words q_at, q_at + 1, q_at + 2 ...
     W3 qa, qb, qc;       // ... held in registers (uniform)
 
     __device__ WordSyms(const Planes& r, const Planes& q, int nr_, int dsz_)
-        : R(r), Q(q), nr(nr_), dsz(dsz_) {}
+        : R(r), Q(q), nr(nr_), dsz(dsz_),
+          tail(dsz_ & 31 ? FULL << (dsz_ & 31) : 0u) {
+        Q.nw = min(q.nw, (max(dsz_, 0) + 31) >> 5);
+    }
+
+    // the query's word w (N at and past dsz)
+    __device__ __forceinline__ W3 qword(int w) const {
+        W3 x = word_at(Q, w);
+        if (w == Q.nw - 1) x.nn |= tail;
+        return x;
+    }
 
     // hold query words w .. w + 2, keeping those already held
     __device__ __forceinline__ void qload(int w) {
@@ -325,12 +271,12 @@ struct WordSyms {
             qb = qc;
         } else if (w == q_at + 2) {
             qa = qc;
-            qb = word_at(Q, w + 1);
+            qb = qword(w + 1);
         } else {
-            qa = word_at(Q, w);
-            qb = word_at(Q, w + 1);
+            qa = qword(w);
+            qb = qword(w + 1);
         }
-        qc = word_at(Q, w + 2);
+        qc = qword(w + 2);
         q_at = w;
     }
 
@@ -354,8 +300,10 @@ struct WordSyms {
     __device__ __forceinline__ int lce(int rp, int qp, int from,
                                        int lane) const {
         for (int o = from;; o += LANES * LANES) {
-            const int ol = o + LANES * lane;
-            const uint32_t d = diff(win32(R, rp + ol), win32(Q, qp + ol));
+            const int ql = qp + o + LANES * lane;  // >= 0
+            const uint32_t d =
+                diff(win32(R, rp + o + LANES * lane),
+                     join(qword(ql >> 5), qword((ql >> 5) + 1), ql & 31));
             const unsigned m = __ballot_sync(FULL, d != 0);
             if (m) {
                 const int L = __ffs(m) - 1;
@@ -404,8 +352,8 @@ struct WordSyms {
 
     // start loading the candidate and query words at i (an event's end,
     // where the parse resumes after its extension)
-    __device__ __forceinline__ void prefetch(PackedCand& cd, int i,
-                                             int lane) {
+    template <class Cand>
+    __device__ __forceinline__ void prefetch(Cand& cd, int i, int lane) {
         cd.load(i, lane);
         qload(i >> 5);
     }
@@ -416,10 +364,10 @@ struct WordSyms {
     // the diagonal dd = p - i a hit at step j is a run of msl matches from
     // bit j of the diagonal's 64-position mismatch mask; lane l takes the
     // diagonals l, l + 32, ... and one reduction gives the first hit.
-    __device__ __forceinline__ int literal_run(PackedCand& cd, int i,
-                                               int pred, int lit_run,
-                                               int kmax, const Cfg& c,
-                                               int lane) {
+    template <class Cand>
+    __device__ __forceinline__ int literal_run(Cand& cd, int i, int pred,
+                                               int lit_run, int kmax,
+                                               const Cfg& c, int lane) {
         W3 q0, q1;  // (its loads overlap the candidate words')
         qwin64(i, q0, q1);
         const int k = cd.first_with(i, min(kmax, LANES), lane);
@@ -513,11 +461,17 @@ struct WordSyms {
             FULL, b_len == s_len && b_dist == dist ? b_pos : INT_MAX);
     }
 
-    // ByteSyms::ext with each step's mismatch mask from one word compare
+    // the sliding-window extensions (planes.cuh; a forward scan stops at
+    // dsz through max_len, so the query's tail word is not needed)
     template <bool FWD>
     __device__ __forceinline__ int ext(const Cfg& c, int dpos, int rpos,
                                        int max_len, int lane,
                                        long long& steps) const {
+        if constexpr (WIDE) {
+            if (c.aw <= LANES && c.ar >= 1 && c.ar < LANES)
+                return ext_wide<FWD>(Q, R, c.aw, c.am, c.ar, dpos, rpos,
+                                     max_len, lane, steps);
+        }
         return ext_scan<FWD>(Q, R, c.aw, c.am, c.ar, dpos, rpos, max_len,
                              lane, steps);
     }
@@ -694,8 +648,8 @@ __global__ void __launch_bounds__(MAX_WARPS * LANES) parse_group_kernel(
         const int b = order[k];
         const size_t pair = (size_t)g * B + b;
         const uint32_t* qb = qpl + (size_t)b * 3 * QW;
-        WordSyms S(R, Planes{qb, qb + QW, qb + 2 * (size_t)QW, QW}, nr,
-                   dszs[b]);
+        WordSyms<false> S(R, Planes{qb, qb + QW, qb + 2 * (size_t)QW, QW},
+                          nr, dszs[b]);
         PackedCand cd(cand + pair * LqP, LqP);
         parse_pair(S, cd, poslist + (size_t)g * KaP, next_hit + pair * LqP,
                    win + (size_t)g * WinP, ev + pair * evc * 8, nev + pair,
@@ -703,32 +657,45 @@ __global__ void __launch_bounds__(MAX_WARPS * LANES) parse_group_kernel(
     }
 }
 
-// Long-genome path: one warp per pair in pair order, dszs (G, B).
-__global__ void __launch_bounds__(WARPS_BIG * LANES) parse_big_kernel(
-    const uint8_t* __restrict__ refbuf, const uint8_t* __restrict__ qbuf,
+// Long-genome path: dszs (G, B). Each warp takes pairs order[k] (the
+// longest query first) from the counter next_pair; both sides' planes are
+// read from device memory. A query's planes hold its longest pair's
+// length; WordSyms reads a shorter pair's query as N past its dsz.
+__global__ void __launch_bounds__(MAX_WARPS * LANES) parse_big_kernel(
+    const uint32_t* __restrict__ rpl, const uint32_t* __restrict__ qpl,
     const int32_t* __restrict__ poslist, const int32_t* __restrict__ cand,
     const int32_t* __restrict__ next_hit, const uint32_t* __restrict__ win,
     const int32_t* __restrict__ dszs, const int32_t* __restrict__ nrs,
-    int32_t* __restrict__ ev, int32_t* __restrict__ nev, int G, int B,
-    int LrP, int LqP, int KaP, int WinP, int evc, Cfg c) {
+    const int32_t* __restrict__ order,
+    int32_t* __restrict__ next_pair, int32_t* __restrict__ ev,
+    int32_t* __restrict__ nev, int G, int B, int RW, int QW, int LqP,
+    int KaP, int WinP, int evc, Cfg c, long long* __restrict__ probe) {
     const int lane = threadIdx.x % LANES;
-    const int pair = blockIdx.x * WARPS_BIG + threadIdx.x / LANES;
-    if (pair >= G * B) return;  // the whole warp
-    const int g = pair / B, b = pair % B;
-    ByteSyms S{refbuf + (size_t)g * LrP, nrs[g], qbuf + (size_t)b * LqP,
-               dszs[pair]};
-    TwoPlaneCand cd(cand, pair, LqP);
-    parse_pair(S, cd, poslist + (size_t)g * KaP,
-               next_hit + (size_t)pair * LqP, win + (size_t)g * WinP,
-               ev + (size_t)pair * evc * 8, nev + pair, evc, c, lane,
-               nullptr);
+    for (;;) {
+        int k = 0;
+        if (lane == 0) k = atomicAdd(next_pair, 1);
+        k = __shfl_sync(FULL, k, 0);
+        if (k >= G * B) break;  // the whole warp
+        const int pair = order[k];
+        const int g = pair / B, b = pair % B;
+        const uint32_t* rg = rpl + (size_t)g * 3 * RW;
+        const uint32_t* qb = qpl + (size_t)b * 3 * QW;
+        WordSyms<true> S(Planes{rg, rg + RW, rg + 2 * (size_t)RW, RW},
+                         Planes{qb, qb + QW, qb + 2 * (size_t)QW, QW},
+                         nrs[g], dszs[pair]);
+        TwoPlaneCand cd(cand, pair, LqP);
+        parse_pair(S, cd, poslist + (size_t)g * KaP,
+                   next_hit + (size_t)pair * LqP, win + (size_t)g * WinP,
+                   ev + (size_t)pair * evc * 8, nev + pair, evc, c, lane,
+                   probe ? probe + (size_t)pair * NPROBE : nullptr);
+    }
 }
 
 }  // namespace
 
 // Version of the C interface below (dispatch_probe.py --baseline reads it
 // to call an older checkout's build).
-extern "C" int lzt_parse_abi() { return 2; }
+extern "C" int lzt_parse_abi() { return 3; }
 
 // int64 fields a pair of the probe build's counts (ops/parse_kernel.py
 // checks it against its field names when it loads the library).
@@ -814,23 +781,31 @@ extern "C" int lzt_parse_occupancy(int smem, int warps) {
     return rc == 0 ? n : -1;
 }
 
-// Long-genome path: cand (G, B, 2, LqP) two planes, dszs (G, B).
+// Long-genome path: cand (G, B, 2, LqP) two planes, dszs (G, B). Scratch
+// from the caller: rpl (G, 3, LrP / 32) and qpl (B, 3, LqP / 32) uint32
+// plane words, qlens (B,) each query's longest dsz, order (G * B,) the
+// pairs longest first, next_pair (1,) a zeroed counter. The launch:
+// `blocks` blocks of `warps` warps. probe (G, B, NPROBE) int64 is written
+// by the probe build only.
 extern "C" int lzt_parse_events_big(
     const void* refbuf, const void* qbuf, const void* poslist,
     const void* cand, const void* next_hit, const void* win,
     const void* dszs, const void* nrs, void* ev, void* nev, int G, int B,
     int LrP, int LqP, int KaP, int WinP, int evc, int mal, int msl, int mrd,
-    int mqd, int reg, int aw, int am, int ar, void* stream) {
-    const int n = G * B;
-    if (n > 0) {
-        parse_big_kernel<<<(n + WARPS_BIG - 1) / WARPS_BIG,
-                           WARPS_BIG * LANES, 0, (cudaStream_t)stream>>>(
-            (const uint8_t*)refbuf, (const uint8_t*)qbuf,
-            (const int32_t*)poslist, (const int32_t*)cand,
-            (const int32_t*)next_hit, (const uint32_t*)win,
-            (const int32_t*)dszs, (const int32_t*)nrs, (int32_t*)ev,
-            (int32_t*)nev, G, B, LrP, LqP, KaP, WinP, evc,
-            Cfg{mal, msl, mrd, mqd, reg, aw, am, ar});
-    }
+    int mqd, int reg, int aw, int am, int ar, void* stream, void* probe,
+    void* rpl, void* qpl, const void* qlens, const void* order,
+    void* next_pair, int warps, int blocks) {
+    if (G * B == 0) return 0;
+    cudaStream_t st = (cudaStream_t)stream;
+    int rc = pack_planes(refbuf, nrs, G, LrP, rpl, st);
+    if (rc == 0) rc = pack_planes(qbuf, qlens, B, LqP, qpl, st);
+    if (rc != 0) return rc;
+    parse_big_kernel<<<blocks, warps * LANES, 0, st>>>(
+        (const uint32_t*)rpl, (const uint32_t*)qpl, (const int32_t*)poslist,
+        (const int32_t*)cand, (const int32_t*)next_hit,
+        (const uint32_t*)win, (const int32_t*)dszs, (const int32_t*)nrs,
+        (const int32_t*)order, (int32_t*)next_pair, (int32_t*)ev,
+        (int32_t*)nev, G, B, LrP / LANES, LqP / LANES, LqP, KaP, WinP, evc,
+        Cfg{mal, msl, mrd, mqd, reg, aw, am, ar}, (long long*)probe);
     return (int)cudaGetLastError();
 }

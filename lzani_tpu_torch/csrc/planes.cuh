@@ -14,11 +14,13 @@
 //
 // Also here: the sliding-window extension scan on those words
 // (Parser::extend_fwd / extend_bwd of csrc/lzani_core.cpp), which both
-// kernels run, and the cp.async copy of a row's planes into shared
-// memory.
+// kernels run, 32 offsets a warp step (ext_scan) or, for the long-genome
+// parse, 4,096 (ext_wide), and the cp.async copy of a row's planes into
+// shared memory.
 // ============================================================================
 #pragma once
 
+#include <climits>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -150,39 +152,207 @@ __device__ __forceinline__ int ext_scan(const Planes& Q, const Planes& R,
     return last;
 }
 
-// Bit planes of a (rows, L) symbol buffer, one warp per 32-symbol word:
-// (rows, 3, L / 32) words, a code >= 4 or a position at or past the row's
-// length read as N.
+// bit k set where bits 32 + k - n + 1 .. 32 + k of the 64 bits hi:lo are
+// (1 <= n < 32): the offsets of the word hi that end a run of n ones
+__device__ __forceinline__ uint32_t run_ends(uint32_t lo, uint32_t hi,
+                                             int n) {
+    uint32_t r = FULL;  // lo:hi hold the runs of 2^b ones ending at a bit
+    int off = 0;
+#pragma unroll
+    for (int b = 0; b < 5; ++b) {
+        if (n >> b & 1) {
+            r &= __funnelshift_l(lo, hi, off);
+            off += 1 << b;
+        }
+        hi &= __funnelshift_l(lo, hi, 1 << b);
+        lo &= lo << (1 << b);
+    }
+    return r;
+}
+
+// 32-offset words a lane takes in a step of ext_wide
+constexpr int EXT_WORDS = 4;
+
+// The plane words that hold a lane's EXT_WORDS scan words from offset e
+// of an extension (ext_wide): the EXT_WORDS + 1 words of each side's
+// planes from the lowest position the scan words read.
+struct ScanWords {
+    W3 q[EXT_WORDS + 1], r[EXT_WORDS + 1];
+    int sq, sr;  // the windows' shift within a word
+
+    template <bool FWD>
+    __device__ __forceinline__ void load(const Planes& Q, const Planes& R,
+                                         int dpos, int rpos, int e) {
+        // forward, offset word u reads [pos + e + 32 u, + 32); backward,
+        // [pos - e - 32 (u + 1), + 32), reversed
+        const int pq = FWD ? dpos + e : dpos - e - EXT_WORDS * LANES;
+        const int pr = FWD ? rpos + e : rpos - e - EXT_WORDS * LANES;
+        sq = pq & 31;
+        sr = pr & 31;
+#pragma unroll
+        for (int k = 0; k <= EXT_WORDS; ++k) {
+            q[k] = word_at(Q, (pq >> 5) + k);
+            r[k] = word_at(R, (pr >> 5) + k);
+        }
+    }
+
+    // the mismatch word of offsets e + 32 u + [0, 32) (miss_word)
+    template <bool FWD>
+    __device__ __forceinline__ unsigned miss(int u) const {
+        const int k = FWD ? u : EXT_WORDS - 1 - u;
+        const unsigned d = diff(join(q[k], q[k + 1], sq),
+                                join(r[k], r[k + 1], sr));
+        return FWD ? d : __brev(d);
+    }
+};
+
+// ext_scan for aw <= 32 and 1 <= ar < 32, 32 x EXT_WORDS x 32 offsets a
+// warp step: lane l takes the EXT_WORDS mismatch words from word
+// EXT_WORDS l of the step (EXT_WORDS + 1 plane words a plane and side).
+// With the word before each (its own, the lower lane's, or the last
+// step's lane 31's), a lane holds every window it needs in one 64-offset
+// mask: the misses in (e - aw, e] are a popcount of it, taken window by
+// window only for the 8 windows of a quarter word whose span holds more
+// than am misses, and e qualifies where e and the ar - 1 offsets before
+// it match. A lane's words are examined without branches but that rare
+// count (a word past the lane's first stop changes nothing), so their
+// work overlaps; the lane keeps its last qualifying offset. The first
+// stop is a vote, and the last qualifying offset before it a reduction.
+// The next step's plane words are loaded before this step's are
+// examined. Returns what ext_scan returns; `steps` counts the warp steps.
+template <bool FWD>
+__device__ __forceinline__ int ext_wide(const Planes& Q, const Planes& R,
+                                        int aw, int am, int ar, int dpos,
+                                        int rpos, int max_len, int lane,
+                                        long long& steps) {
+    constexpr int STEP = LANES * EXT_WORDS * LANES;
+    const int e_lane = EXT_WORDS * LANES * lane;  // the lane's first offset
+    const uint64_t win = ~0ull >> (64 - aw);      // a window's aw bits
+    const uint64_t quarter = ~0ull >> (57 - aw);  // 8 windows' 7 + aw bits
+    ScanWords next;
+    next.load<FWD>(Q, R, dpos, rpos, e_lane);
+    unsigned carry = 0;  // the word before the step's first
+    int best = 0;        // the lane's last qualifying offset + 1
+    for (int base = 0; base < max_len; base += STEP) {
+        PROBE(++steps);
+        unsigned M[EXT_WORDS];
+#pragma unroll
+        for (int u = 0; u < EXT_WORDS; ++u) M[u] = next.miss<FWD>(u);
+        next.load<FWD>(Q, R, dpos, rpos, base + STEP + e_lane);
+        const unsigned up = __shfl_up_sync(FULL, M[EXT_WORDS - 1], 1);
+        unsigned prev = lane ? up : carry;
+        uint64_t W[EXT_WORDS];
+        unsigned inm[EXT_WORDS], q[EXT_WORDS];
+        bool dense = false;
+#pragma unroll
+        for (int u = 0; u < EXT_WORDS; ++u) {
+            const int left = max_len - (base + e_lane + u * LANES);
+            inm[u] = left >= LANES ? FULL : left <= 0 ? 0u : (1u << left) - 1;
+            const unsigned m = M[u] & inm[u];
+            // bit t of W is offset e0 - aw + 1 + t (e0 the word's
+            // first): the window of offset e0 + j is bits [j, j + aw)
+            W[u] = ((uint64_t)m << LANES | prev) >> (LANES + 1 - aw);
+            dense |= __popcll(W[u]) > am;
+            // offsets whose ar-run of matches ends there
+            q[u] = run_ends(~prev, ~m, ar) & inm[u];
+            prev = m;
+        }
+        unsigned over[EXT_WORDS];  // offsets that stop the scan
+#pragma unroll
+        for (int u = 0; u < EXT_WORDS; ++u) over[u] = ~inm[u];
+        if (dense) {
+#pragma unroll
+            for (int u = 0; u < EXT_WORDS; ++u) {
+                if (__popcll(W[u]) <= am) continue;
+#pragma unroll
+                for (int h = 0; h < 4; ++h) {
+                    const uint64_t E = W[u] >> (8 * h);
+                    if (__popcll(E & quarter) > am) {
+#pragma unroll
+                        for (int j = 0; j < 8; ++j)
+                            over[u] |= (unsigned)(__popcll(E >> j & win)
+                                                  > am) << (8 * h + j);
+                    }
+                }
+            }
+        }
+        int mine = best;
+        bool stopped = false;
+#pragma unroll
+        for (int u = 0; u < EXT_WORDS; ++u) {
+            unsigned qu = q[u];
+            if (over[u]) qu &= (1u << (__ffs(over[u]) - 1)) - 1;
+            if (!stopped && qu)
+                mine = base + e_lane + u * LANES + top_bit(qu) + 1;
+            stopped |= over[u] != 0;
+        }
+        const unsigned S = __ballot_sync(FULL, stopped);
+        if (S) {
+            // lanes above the first stop's keep what they held before
+            const int L = __ffs(S) - 1;
+            return __reduce_max_sync(FULL, lane <= L ? mine : best);
+        }
+        best = mine;
+        carry = __shfl_sync(FULL, M[EXT_WORDS - 1], LANES - 1);
+    }
+    return __reduce_max_sync(FULL, best);
+}
+
+// the bits 0 of 8 bytes, byte i's at bit i (a multiply gathers them: each
+// byte's bit lands at a bit of its own in the top byte, without carries)
+__device__ __forceinline__ uint32_t gather8(uint64_t ones) {
+    return (uint32_t)((ones & 0x0101010101010101ull) * 0x0102040810204080ull
+                      >> 56);
+}
+
+// Bit planes of a (rows, L) symbol buffer (16-byte aligned, L a multiple
+// of 32), one thread per 32-symbol word: (rows, 3, L / 32) words, a code
+// >= 4 or a position at or past the row's length read as N. A thread
+// reads its 32 bytes in two 16-byte loads and gathers each plane's bits
+// 8 bytes at a time.
 __global__ void pack_planes_kernel(const uint8_t* __restrict__ buf,
                                    const int32_t* __restrict__ lens,
                                    int rows, int L,
                                    uint32_t* __restrict__ planes) {
-    const int lane = threadIdx.x % LANES;
     const int nw = L / LANES;
-    const long long total = (long long)rows * nw;
-    const long long step = (long long)gridDim.x * blockDim.x / LANES;
-    for (long long t = (blockIdx.x * (long long)blockDim.x + threadIdx.x)
-                       / LANES;
-         t < total; t += step) {
-        const int row = (int)(t / nw), w = (int)(t % nw);
-        const int p = w * LANES + lane;
-        const int s = buf[(size_t)row * L + p];
-        const bool n = p >= lens[row] || s >= SYM_N_REF;
-        const unsigned lo = __ballot_sync(FULL, !n && (s & 1));
-        const unsigned hi = __ballot_sync(FULL, !n && (s & 2));
-        const unsigned nn = __ballot_sync(FULL, n);
+    const int total = rows * nw;
+    for (int t = blockIdx.x * blockDim.x + threadIdx.x; t < total;
+         t += gridDim.x * blockDim.x) {
+        const int row = t / nw, w = t % nw;
+        const uint4* src =
+            (const uint4*)(buf + (size_t)row * L + (size_t)w * LANES);
+        const uint4 a = src[0], b = src[1];
+        const uint64_t v[4] = {(uint64_t)a.y << 32 | a.x,
+                               (uint64_t)a.w << 32 | a.z,
+                               (uint64_t)b.y << 32 | b.x,
+                               (uint64_t)b.w << 32 | b.z};
+        uint32_t lo = 0, hi = 0, nn = 0;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+            // bit 7 of a byte set where the byte is >= 4
+            const uint64_t big = v[k] & 0xfcfcfcfcfcfcfcfcull;
+            const uint64_t n7 =
+                ((big & 0x7f7f7f7f7f7f7f7full) + 0x7f7f7f7f7f7f7f7full) | big;
+            lo |= gather8(v[k]) << (8 * k);
+            hi |= gather8(v[k] >> 1) << (8 * k);
+            nn |= gather8(n7 >> 7) << (8 * k);
+        }
+        const int left = lens[row] - w * LANES;  // symbols of the row here
+        nn |= left >= LANES ? 0u : left <= 0 ? FULL : FULL << left;
         uint32_t* o = planes + (size_t)row * 3 * nw + w;
-        if (lane == 0) o[0] = lo;
-        if (lane == 1) o[nw] = hi;
-        if (lane == 2) o[2 * (size_t)nw] = nn;
+        o[0] = lo & ~nn;
+        o[nw] = hi & ~nn;
+        o[2 * (size_t)nw] = nn;
     }
 }
 
 int pack_planes(const void* buf, const void* lens, int rows, int L,
                 void* planes, cudaStream_t st) {
     const long long words = (long long)rows * (L / LANES);
+    if ((size_t)buf % 16 || L % LANES || words >= INT_MAX)
+        return (int)cudaErrorInvalidValue;
     const int threads = 256;
-    const long long want = (words * LANES + threads - 1) / threads;
+    const long long want = (words + threads - 1) / threads;
     const int blocks = (int)(want < 4096 ? want : 4096);
     if (blocks > 0)
         pack_planes_kernel<<<blocks, threads, 0, st>>>(

@@ -3,9 +3,18 @@ launch, on the smoke sets of ``chip_smoke.py``.
 
     python -m lzani_tpu_torch.dispatch_probe [--n 256] [--seed 2024] \\
         [--baseline OTHER_CHECKOUT] [--skip-profile] [--timing] \\
-        [--probe [--save F]] [--fold [--save F]]
+        [--probe [--save F]] [--fold [--save F]] [--big [--probe]]
 
 Prints, each line beside the card's name and power limit:
+  - with ``--big``, only the long-genome kernel on the bacterial launch
+    below (``_big``): with ``--probe`` first its probe build's ten pairs
+    of longest warp span with their counts and the shares of the span
+    spent in the anchor search, the seed window, the extensions, the
+    literal-run lookahead and the desync jumps, its logs equal to the
+    plain build's; its ms (CUDA events, the mean of 2 launches after
+    one), bound, launch plan and device time by kernel (torch.profiler:
+    the plane packs and the parse); with ``--baseline`` the other
+    checkout's kernel in turns, logs equal; ptxas's report;
   - with ``--fold``, only the fold kernel (``ops/fold_stats.py``), on the
     logs of the automaton backend's row launch (G = 1 x 255 queries
     sorted by length, masked as ``RefIndexJax.dispatch`` masks them) and
@@ -51,15 +60,16 @@ Prints, each line beside the card's name and power limit:
     whose logs must equal the shared-memory one's;
   - the three pairs of the G = 4, B = 256 dispatch that log the most
     events, each launched alone (G = B = 1);
-  - kernel ms of the first long-genome launch of ``synth.bacterial_set``
-    at the tuned parameters (G_big x B_big as ``all2all_cuda`` sizes it);
+  - the first long-genome launch of ``synth.bacterial_set`` at the tuned
+    parameters (G_big x B_big as ``all2all_cuda`` sizes it), as with
+    ``--big`` (its probe build with ``--probe``);
   - kernel ms and bound of a group dispatch at LqP = 2^19 (two 261 kb
     genomes: the query bucket where the JAX engine leaves its v7 kernel);
   - with ``--baseline``, the G = 4 x B = 256 dispatch, the row launch,
     the batch and the bacterial launch also through the other checkout's
-    ``csrc/parse_events.cu`` (its group entry with or without the plane
-    scratch), in turns (baseline, this, this, baseline) on the same
-    inputs; both must give the same logs;
+    ``csrc/parse_events.cu`` (its entries called through the C interface
+    of its ``lzt_parse_abi``), in turns (baseline, this, this, baseline)
+    on the same inputs; both must give the same logs;
   - unless ``--skip-profile``, ``all2all_cuda`` on the first 48 genomes
     under ``torch.profiler``: the parse kernel's share of device time, and
     the device-busy time against the wall time.
@@ -88,26 +98,30 @@ from .utils.runinfo import (card_name_and_power, fold_bound_ms,
 def _other_kernels(tree):
     """(library, C interface version) of the parse kernels of another
     checkout's csrc/parse_events.cu, built and loaded under their own
-    name, its entries' argument types set: version 2 (``lzt_parse_abi``)
-    is this tree's; 1 (no ``lzt_parse_abi``: the one-warp-per-pair
-    kernel) has a group entry without the plane scratch."""
+    name, its entries' argument types set: version 3 (``lzt_parse_abi``)
+    is this tree's; 2 has a long-genome entry that takes the common
+    arguments only (one-byte symbols, no scratch); 1 (no
+    ``lzt_parse_abi``: the one-warp-per-pair kernel) also a group entry
+    without the plane scratch."""
     lib = build.load_library("parse_events_baseline", [os.path.join(
         tree, "lzani_tpu_torch", "csrc", "parse_events.cu")])
     abi = lib.lzt_parse_abi() if hasattr(lib, "lzt_parse_abi") else 1
-    if abi not in (1, 2):
+    if abi not in (1, 2, 3):
         raise ValueError(f"{tree}: unknown parse kernel interface {abi}")
     head = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 15 + [ctypes.c_void_p]
-    lib.lzt_parse_events.argtypes = head + (
-        [] if abi == 1 else [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3)
-    lib.lzt_parse_events_big.argtypes = head
+    scratch = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
+    lib.lzt_parse_events.argtypes = head + ([] if abi == 1 else scratch)
+    lib.lzt_parse_events_big.argtypes = head + (
+        [] if abi < 3 else [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2)
     lib.lzt_parse_events.restype = ctypes.c_int
     lib.lzt_parse_events_big.restype = ctypes.c_int
     return lib, abi
 
 
-def _launch_abi1(fn, refbuf, qbuf, poslist, cand, next_hit, win, dsz, nrs,
+def _launch_head(fn, refbuf, qbuf, poslist, cand, next_hit, win, dsz, nrs,
                  cfg, ev_cap):
-    """(ev, nev) of one launch of a version-1 group entry (no scratch) on
+    """(ev, nev) of one launch of an entry that takes the common arguments
+    only (a version-1 group entry, a version-1 or 2 long-genome entry) on
     the current stream; raises when the launch is refused."""
     G, LrP = refbuf.shape
     B, LqP = qbuf.shape
@@ -121,7 +135,7 @@ def _launch_abi1(fn, refbuf, qbuf, poslist, cand, next_hit, win, dsz, nrs,
             cfg.msl, cfg.mrd, cfg.mqd, cfg.reg, cfg.aw, cfg.am, cfg.ar,
             torch.cuda.current_stream(refbuf.device).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"baseline lzt_parse_events: kernel launch failed "
+        raise RuntimeError(f"baseline {fn.__name__}: kernel launch failed "
                            f"(cudaError {rc})")
     return ev, nev
 
@@ -130,13 +144,13 @@ def _kernel_ms(entry, args, reps=3, base=None, smem_max=None):
     """(mean kernel ms of `reps` launches after a warm-up, warm-up output)
     of the C entry `entry` of this package's build, or of `base`
     (``_other_kernels``); `smem_max` as ``parse_kernel.parse_events``."""
-    lib, abi = base or (pk.load(), 2)
+    lib, abi = base or (pk.load(), 3)
     fn = getattr(lib, entry)
     group = entry == "lzt_parse_events"
 
     def launch():
-        if group and abi == 1:
-            return _launch_abi1(fn, *args)
+        if abi == 1 or (not group and abi == 2):
+            return _launch_head(fn, *args)
         return pk._launch(entry, fn, *args, group=group,
                           smem_max=smem_max)[:2]
 
@@ -152,18 +166,23 @@ def _kernel_ms(entry, args, reps=3, base=None, smem_max=None):
     return start.elapsed_time(stop) / reps, out
 
 
-def _probe(tag, args, smi, save, key):
-    """The probe build on one launch: the ten pairs of longest span with
-    their counts; its logs must equal the plain build's."""
+def _probe(tag, args, smi, save, key, big=False):
+    """The probe build on one launch (of the long-genome kernel if `big`):
+    the ten pairs of longest span with their counts and the shares of
+    their span by kind of step; its logs must equal the plain build's."""
     G, B = args[3].shape[:2]
-    *out, probe = pk.parse_events_probe(*args)
-    ref = pk._launch("lzt_parse_events", pk.load().lzt_parse_events,
-                     *args)[:2]
+    probe_fn, entry = ((pk.parse_events_big_probe, "lzt_parse_events_big")
+                       if big else (pk.parse_events_probe,
+                                    "lzt_parse_events"))
+    *out, probe = probe_fn(*args)
+    ref = pk._launch(entry, getattr(pk.load(), entry), *args,
+                     group=not big)[:2]
     torch.cuda.synchronize()
     if not _same_logs(out, ref):
         raise AssertionError(f"{tag}: the probe build's logs differ")
     pr = probe.cpu().numpy().reshape(G * B, pk.NPROBE)
     save[key] = pr
+    dsz = (args[6] if big else args[6].expand(G, -1)).cpu().numpy()
     clk = "{} / {} MHz".format(*sm_clock_mhz())
     f = {n: j for j, n in enumerate(pk.PROBE_FIELDS)}
     tot = pr.sum(0)
@@ -171,15 +190,17 @@ def _probe(tag, args, smi, save, key):
           f"{int(np.median(pr[:, 0]))} cycles (SM clock now, max: {clk}); "
           f"totals " + ", ".join(f"{n} {tot[j]}" for n, j in f.items()
                                  if n != "span") + f" [{smi}]", flush=True)
+    parts = ("cyc_anc", "cyc_seed", "cyc_ext", "cyc_run", "cyc_jump")
     for flat in np.argsort(pr[:, 0])[::-1][:10]:
         g, b = divmod(int(flat), B)
         row = pr[flat]
         span = max(int(row[0]), 1)
-        print(f"  pair (g {g}, b {b}) dsz {int(args[6][b])}: "
+        rest = 1 - sum(row[f[n]] for n in parts) / span
+        print(f"  pair (g {g}, b {b}) dsz {int(dsz[g, b])}: "
               + ", ".join(f"{n} {row[j]}" for n, j in f.items())
-              + f"; share anc {row[f['cyc_anc']] / span:.3f}, seed "
-              f"{row[f['cyc_seed']] / span:.3f}, ext "
-              f"{row[f['cyc_ext']] / span:.3f}", flush=True)
+              + "; share " + ", ".join(f"{n[4:]} {row[f[n]] / span:.3f}"
+                                       for n in parts)
+              + f", other {rest:.3f}", flush=True)
 
 
 def _series(tag, args, n, smi, smem_max=None):
@@ -413,6 +434,53 @@ def _fold(a, dev, smi, codes, params, rows, batch) -> None:
             raise AssertionError(f"fold {tag}: the two kernels differ")
 
 
+def _by_kernel(fn) -> str:
+    """'kernel ms, ...': the device time of each kernel that one call of
+    `fn` launches (``torch.profiler``, after a call outside it)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    evs = [(getattr(e, "self_device_time_total",
+                    getattr(e, "self_cuda_time_total", 0)), e.key)
+           for e in prof.key_averages()]
+    return ", ".join(f"{key[:48]} {us / 1e3:.3f} ms"
+                     for us, key in sorted(evs, reverse=True) if us > 0)
+
+
+def _big(a, dev, smi, base_lib, saved) -> None:
+    """The long-genome kernel on the first launch of ``synth.bacterial_set``
+    at the tuned parameters (G_big x B_big as ``all2all_cuda`` sizes it):
+    with --probe its probe build first; its ms and bound; with
+    --baseline the other checkout's kernel in turns."""
+    _, bcodes = synth.bacterial_set(a.seed)
+    bcodes = sorted(bcodes, key=len, reverse=True)   # the Matcher's order
+    beng = ce.CudaAll2All(bcodes, synth.bacterial_params(), devices=[dev])
+    Gb, Bb = beng.big_launch_shape(len(bcodes), dev)
+    r_list = list(range(Gb))
+    bargs = beng.big_args(beng.build_big_index(r_list, dev), r_list, 0, dev)
+    tag = f"bacterial launch G_big={Gb} x B_big={Bb}"
+    if a.probe:
+        _probe(tag, bargs, smi, saved, "big", big=True)
+    ms, out = _kernel_ms("lzt_parse_events_big", bargs, reps=2)
+    bound, by = launch_bound_ms(bargs, out[1], bargs[6])
+    def launch():
+        return pk._launch("parse_events_big", pk.load().lzt_parse_events_big,
+                          *bargs, group=False)[2]
+
+    warps, blocks = launch()
+
+    print(f"{tag} (LqP {beng.LqP}, LrP {beng.LrP_big}): {ms:.2f} ms, "
+          f"{int(out[1].clamp(min=0).sum())} records, bound {bound:.4f} ms "
+          f"({by}); plan {warps} warps x {blocks} blocks; device time by "
+          f"kernel: {_by_kernel(launch)} [{smi}]", flush=True)
+    if base_lib is not None:
+        _versus(tag, "lzt_parse_events_big", bargs, base_lib, 2, smi)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=256)
@@ -428,6 +496,10 @@ def main(argv=None) -> int:
     ap.add_argument("--fold", action="store_true",
                     help="only the fold kernel: its probe build's spans "
                     "and counts, its times (and --baseline's in turns)")
+    ap.add_argument("--big", action="store_true",
+                    help="only the long-genome kernel on the bacterial "
+                    "launch: (with --probe) its probe build, its ms, "
+                    "bound and launch plan (and --baseline's in turns)")
     ap.add_argument("--save", help="with --probe or --fold: .npz of every "
                     "pair's counts")
     a = ap.parse_args(argv)
@@ -438,6 +510,15 @@ def main(argv=None) -> int:
     smi = card_name_and_power()
     base_lib = (_other_kernels(a.baseline) if a.baseline and not a.fold
                 else None)
+    if a.big:
+        saved = {}
+        _big(a, dev, smi, base_lib, saved)
+        for ln in ptxas_lines(build.build_report("parse_events")):
+            if "big" in ln or "pack_planes" in ln:
+                print(f"ptxas {ln}", flush=True)
+        if a.probe and a.save:
+            np.savez(a.save, fields=np.array(pk.PROBE_FIELDS), **saved)
+        return 0
     _, codes = synth.viral_set(seed=a.seed, n=a.n)
     params = Params()
     eng = ce.CudaAll2All(codes, params, devices=[dev])
@@ -460,14 +541,12 @@ def main(argv=None) -> int:
     if a.timing:
         _timing(group_args(eng.build_group_index([0, 1, 2, 3], dev), B),
                 smi)
+    saved = {}
     if a.probe:
-        saved = {}
         _probe("group dispatch G=4 B=256", group_args(
             eng.build_group_index([0, 1, 2, 3], dev), B), smi, saved,
             "group")
         _probe(f"row launch G=1 B={len(qs)}", rargs, smi, saved, "row")
-        if a.save:
-            np.savez(a.save, fields=np.array(pk.PROBE_FIELDS), **saved)
 
     for ln in ptxas_lines(build.build_report("parse_events")):
         print(f"ptxas {ln}", flush=True)
@@ -513,17 +592,6 @@ def main(argv=None) -> int:
         print(f"pair ({g},{b}) alone: {len(codes[g])} x {len(codes[b])} bp, "
               f"{nev4[g, b]} events, {ms:.2f} ms [{smi}]", flush=True)
 
-    _, bcodes = synth.bacterial_set(a.seed)
-    bcodes = sorted(bcodes, key=len, reverse=True)   # the Matcher's order
-    beng = ce.CudaAll2All(bcodes, synth.bacterial_params(), devices=[dev])
-    Gb, Bb = beng.big_launch_shape(len(bcodes), dev)
-    r_list = list(range(Gb))
-    bargs = beng.big_args(beng.build_big_index(r_list, dev), r_list, 0, dev)
-    ms, out = _kernel_ms("lzt_parse_events_big", bargs, reps=2)
-    print(f"bacterial launch G_big={Gb} x B_big={Bb} (LqP {beng.LqP}): "
-          f"{ms:.2f} ms, {int(out[1].clamp(min=0).sum())} records "
-          f"[{smi}]", flush=True)
-
     # the group path at 2^18 < LqP <= 2^19 (the JAX engine's route to
     # make_parse_kernel(big=False), pallas_engine.py:2214): a 261 kb
     # genome and a 1% relative with an unrelated stretch
@@ -548,8 +616,9 @@ def main(argv=None) -> int:
                 base_lib, 3, smi)
         _versus("batch G=1 B=64", "lzt_parse_events", bargs64, base_lib, 3,
                 smi)
-        _versus(f"bacterial launch G_big={Gb} x B_big={Bb}",
-                "lzt_parse_events_big", bargs, base_lib, 1, smi)
+    _big(a, dev, smi, base_lib, saved)
+    if a.probe and a.save:
+        np.savez(a.save, fields=np.array(pk.PROBE_FIELDS), **saved)
     if a.skip_profile:
         return 0
 

@@ -550,8 +550,8 @@ class CudaAll2All:
         warp of its own, so a launch lasts about as long as its slowest
         pair, and more pairs per launch cost little until the warps
         outnumber what the SMs hold at once (the bacterial set's 48 pairs:
-        one launch of 75.7-76.7 ms; dispatch_probe.py, NVIDIA H100 80GB
-        HBM3, 700.00 W).
+        one launch of 1.7 ms of device time; dispatch_probe.py --big,
+        NVIDIA H100 80GB HBM3, 700.00 W).
 
         Sized for `device`, or else for the tightest of the engine's
         devices. A device's quarter is split among the entries that
@@ -566,13 +566,16 @@ class CudaAll2All:
             budgets.append(free // (max(1, share)
                                     * max(1, self.devices.count(dev))))
         budget = min(budgets)
-        LqP = self.LqP
-        # candidate planes + next_hit, and the event buffer
-        per_pair = 12 * LqP + 32 * (self.EV_CAP_BIG + 1)
-        # codes, keys, search bounds and cummin transients of one query
-        per_query = 48 * LqP
-        # packed, uint8 and int32 buffers, sorted keys, position list
-        per_ref = 13 * self.LrP_big + 4 * self.KaP_big
+        LqP, LrP = self.LqP, self.LrP_big
+        # candidate planes + next_hit, the event buffer, the pair order
+        per_pair = 12 * LqP + 32 * (self.EV_CAP_BIG + 1) + 4
+        # codes, keys, search bounds and cummin transients of one query,
+        # its bit planes (3 bits a symbol) and length in the kernel's
+        # scratch
+        per_query = 48 * LqP + 3 * LqP // 8 + 4
+        # packed, uint8 and int32 buffers, sorted keys, position list,
+        # the bit planes in the kernel's scratch
+        per_ref = 13 * LrP + 4 * self.KaP_big + 3 * LrP // 8
         B = self.B
         while B > 1 and B * (per_query + per_pair) + per_ref > budget:
             B //= 2

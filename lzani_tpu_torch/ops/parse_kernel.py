@@ -18,7 +18,10 @@ group path (``parse_events``):
   dsz      (B,)         int32   query length + mrd
 long-genome path (``parse_events_big``):
   cand     (G, B, 2, LqP) int32 start plane, unbounded count plane
-  dsz      (G, B)       int32   query length + mrd per pair (msl: no-op)
+  dsz      (G, B)       int32   query length + mrd per pair (msl: no-op;
+                                the kernel packs a query's planes to its
+                                longest pair and reads a shorter pair's
+                                query as N past its dsz)
 both:
   next_hit (G, B, LqP)  int32   next query position with candidates
 
@@ -34,14 +37,16 @@ sides.)
 A wrapper launches its kernel for CUDA tensors (or raises) and takes the
 plain version only for CPU tensors. Each wrapper counts its launches. A
 launch runs one warp per pair, so its time is that of its slowest pair
-once the card holds every warp at once. The group kernel
-(``parse_events``) packs the symbols into bit planes in scratch on the
-card and keeps each reference's planes in shared memory when they fit
-(``launch_plan``, chosen by shape against the card's limit before the
-launch); otherwise its other instantiation reads them from device
-memory. It counts the
-launches of each instantiation too. ``parse_events`` also serves the
-per-reference routes (``CudaRefIndex``, ``dispatch_range``: G = 1).
+once the card holds every warp at once. Both kernels pack the symbols
+into bit planes in scratch on the card. The group kernel
+(``parse_events``) keeps each reference's planes in shared memory when
+they fit (``launch_plan``, chosen by shape against the card's limit
+before the launch); otherwise its other instantiation reads them from
+device memory. It counts the launches of each instantiation too.
+``parse_events`` also serves the per-reference routes (``CudaRefIndex``,
+``dispatch_range``: G = 1). The long-genome kernel (``parse_events_big``)
+reads both sides' planes from device memory, its warps taking the pairs
+longest first (``big_launch_plan``, ``big_scratch``).
 """
 
 from __future__ import annotations
@@ -94,7 +99,7 @@ def _check(name, refbuf, qbuf, poslist, cand, next_hit, win, dsz, nrs,
         raise ValueError(f"{name}: a buffer of 2^31 or more positions")
 
 
-#: per-pair int64 fields of the group kernel's probe build
+#: per-pair int64 fields of either kernel's probe build
 #: (csrc/parse_events.cu; ``load`` checks their count against its
 #: lzt_parse_nprobe)
 PROBE_FIELDS = ("span", "steps", "jumps", "anc_cand", "anc_lce", "synced",
@@ -103,7 +108,7 @@ PROBE_FIELDS = ("span", "steps", "jumps", "anc_cand", "anc_lce", "synced",
                 "cyc_seed", "cyc_ext", "skipped", "cyc_run", "cyc_jump")
 NPROBE = len(PROBE_FIELDS)
 
-#: warps a block of the group kernel (its launch bound)
+#: warps a block of either kernel (their launch bound)
 MAX_WARPS = 8
 
 
@@ -122,6 +127,34 @@ def launch_plan(G: int, B: int, LrP: int, n_sm: int, smem_max: int):
     warps = min(MAX_WARPS, max(1, B // per_ref))
     return (ref_bytes if ref_bytes <= smem_max else 0, warps,
             max(1, -(-B // warps)))
+
+
+def big_launch_plan(pairs: int, n_sm: int):
+    """(warps a block, blocks) of a long-genome launch of `pairs` pairs on
+    a card of `n_sm` SMs. A warp for each pair: one a block, each on an
+    SM of its own, while the pairs are no more than the SMs (a pair's
+    warp is one chain of dependent loads, and a launch lasts as long as
+    its slowest pair); above that, up to MAX_WARPS a block. The warps
+    take the pairs from a counter, longest query first."""
+    warps = min(MAX_WARPS, max(1, -(-pairs // n_sm)))
+    return warps, max(1, -(-pairs // warps))
+
+
+def big_scratch(dsz, LrP: int, LqP: int):
+    """Scratch of a long-genome launch of (G, B) per-pair query lengths
+    `dsz` at buckets LrP and LqP, on dsz's device: the references' and the
+    queries' bit planes ((G, 3, LrP / 32) and (B, 3, LqP / 32) words), each
+    query's longest pair length (its planes are packed to it; the kernel
+    reads a shorter pair's query as N past its dsz), the G * B pairs
+    longest first, and the zeroed pair counter."""
+    G, B = dsz.shape
+    i32 = dict(dtype=torch.int32, device=dsz.device)
+    return (torch.empty((G, 3, LrP // 32), **i32),
+            torch.empty((B, 3, LqP // 32), **i32),
+            dsz.amax(0).to(torch.int32),
+            torch.argsort(dsz.reshape(-1), descending=True,
+                          stable=True).to(torch.int32),
+            torch.zeros(1, **i32))
 
 
 @functools.lru_cache(maxsize=None)
@@ -145,7 +178,7 @@ def smem_limit(dev: torch.device) -> int:
 @functools.lru_cache(maxsize=None)
 def load(probe: bool = False) -> ctypes.CDLL:
     """Build (at first use) and load the kernels' library; `probe` builds
-    the probe variant (-DLZT_PROBE: the group kernel's per-pair spans and
+    the probe variant (-DLZT_PROBE: either kernel's per-pair spans and
     step counts), a library of its own name and build key. Sets the C
     entries' argument types (pointers and the stream must not be cut to
     int) and checks the probe record's size against PROBE_FIELDS."""
@@ -155,7 +188,8 @@ def load(probe: bool = False) -> ctypes.CDLL:
     head = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 15 + [ctypes.c_void_p]
     lib.lzt_parse_events.argtypes = (head + [ctypes.c_void_p] * 5
                                      + [ctypes.c_int] * 3)
-    lib.lzt_parse_events_big.argtypes = head
+    lib.lzt_parse_events_big.argtypes = (head + [ctypes.c_void_p] * 6
+                                         + [ctypes.c_int] * 2)
     lib.lzt_parse_occupancy.argtypes = [ctypes.c_int, ctypes.c_int]
     for fn in (lib.lzt_parse_events, lib.lzt_parse_events_big,
                lib.lzt_parse_occupancy, lib.lzt_parse_nprobe,
@@ -181,41 +215,49 @@ def occupancy(smem: int, warps: int) -> int:
 def _launch(name, fn, refbuf, qbuf, poslist, cand, next_hit, win, dsz,
             nrs, cfg: ParseCfg, ev_cap: int, *, group: bool = True,
             probe=None, smem_max: int | None = None):
-    """Allocate the outputs (and a group launch's scratch) and launch the
-    C entry `fn` (a function of ``load()``) on the current stream of
-    refbuf's device; raises when the launch is refused. Returns (ev, nev,
-    shared bytes of a group launch or None). A group launch keeps the
-    reference in shared memory when it fits `smem_max` bytes (None: the
-    card's ``smem_limit``; 0 reads it from device memory); `probe`, a
-    (G, B, NPROBE) int64 tensor, takes the probe build's per-pair
-    counts."""
+    """Allocate the outputs and the launch's scratch (the planes of both
+    sides) and launch the C entry `fn` (a function of ``load()``) on the
+    current stream of refbuf's device; raises when the launch is refused.
+    Returns (ev, nev, plan): the plan launched, (shared bytes, warps a
+    block, blocks a reference) of a group launch (``launch_plan``) or
+    (warps a block, blocks) of a long-genome one (``big_launch_plan``). A
+    group
+    launch keeps the reference in shared memory when it fits `smem_max`
+    bytes (None: the card's ``smem_limit``; 0 reads it from device
+    memory); `probe`, a (G, B, NPROBE) int64 tensor, takes the probe
+    build's per-pair counts."""
     dev = refbuf.device
     G, LrP = refbuf.shape
     B, LqP = qbuf.shape
-    if group and (LrP % 128 or LqP % 32):
-        # plane rows of whole words, copied in 16-byte chunks
-        raise ValueError(f"{name}: LrP {LrP} must be a multiple of 128 and "
-                         f"LqP {LqP} of 32")
+    if LrP % (128 if group else 32) or LqP % 32:
+        # plane rows of whole words (a group launch copies a reference's
+        # in 16-byte chunks)
+        raise ValueError(f"{name}: LrP {LrP} must be a multiple of "
+                         f"{128 if group else 32} and LqP {LqP} of 32")
     if dev.type != "cuda":
         raise ValueError(f"{name}: unsupported device {dev}")
+    if refbuf.data_ptr() % 16 or qbuf.data_ptr() % 16:
+        # the plane pack reads 16 bytes at a time
+        raise ValueError(f"{name}: refbuf and qbuf must be 16-byte aligned")
     evc = ev_cap + 1
-    ev = torch.empty((G, B, evc, 8), dtype=torch.int32, device=dev)
-    nev = torch.empty((G, B), dtype=torch.int32, device=dev)
-    extra, smem = (), None
+    i32 = dict(dtype=torch.int32, device=dev)
+    ev = torch.empty((G, B, evc, 8), **i32)
+    nev = torch.empty((G, B), **i32)
     with torch.cuda.device(dev):
         if group:
-            smem, warps, slices = launch_plan(
+            plan = launch_plan(
                 G, B, LrP, sm_count(dev),
                 smem_limit(dev) if smem_max is None else smem_max)
-            i32 = dict(dtype=torch.int32, device=dev)
-            rpl = torch.empty((G, 3, LrP // 32), **i32)
-            qpl = torch.empty((B, 3, LqP // 32), **i32)
-            order = torch.argsort(dsz, descending=True,
-                                  stable=True).to(torch.int32)
-            next_q = torch.zeros(G, **i32)
-            extra = (0 if probe is None else probe.data_ptr(),
-                     rpl.data_ptr(), qpl.data_ptr(), order.data_ptr(),
-                     next_q.data_ptr(), smem, warps, slices)
+            scratch = (torch.empty((G, 3, LrP // 32), **i32),
+                       torch.empty((B, 3, LqP // 32), **i32),
+                       torch.argsort(dsz, descending=True,
+                                     stable=True).to(torch.int32),
+                       torch.zeros(G, **i32))
+        else:
+            scratch = big_scratch(dsz, LrP, LqP)
+            plan = big_launch_plan(G * B, sm_count(dev))
+        extra = (0 if probe is None else probe.data_ptr(),
+                 *(t.data_ptr() for t in scratch), *plan)
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(refbuf.data_ptr(), qbuf.data_ptr(), poslist.data_ptr(),
                 cand.data_ptr(), next_hit.data_ptr(), win.data_ptr(),
@@ -225,7 +267,7 @@ def _launch(name, fn, refbuf, qbuf, poslist, cand, next_hit, win, dsz,
                 cfg.reg, cfg.aw, cfg.am, cfg.ar, stream, *extra)
     if rc != 0:
         raise RuntimeError(f"{name}: kernel launch failed (cudaError {rc})")
-    return ev, nev, smem
+    return ev, nev, plan
 
 
 def parse_events(refbuf, qbuf, poslist, cand, next_hit, win, dsz, nrs,
@@ -239,10 +281,11 @@ def parse_events(refbuf, qbuf, poslist, cand, next_hit, win, dsz, nrs,
     _check("parse_events", *args, big=False)
     if refbuf.device.type == "cpu":
         return parse_events_plain(*args)
-    ev, nev, smem = _launch("parse_events", load().lzt_parse_events, *args,
+    ev, nev, plan = _launch("parse_events", load().lzt_parse_events, *args,
                             smem_max=smem_max)
     parse_events.launches += 1
-    if smem:
+    parse_events.last_plan = plan
+    if plan[0]:
         parse_events.launches_shared += 1
     else:
         parse_events.launches_device += 1
@@ -259,9 +302,10 @@ def parse_events_big(refbuf, qbuf, poslist, cand, next_hit, win, dsz, nrs,
     _check("parse_events_big", *args, big=True)
     if refbuf.device.type == "cpu":
         return parse_events_big_plain(*args)
-    ev, nev, _ = _launch("parse_events_big", load().lzt_parse_events_big,
-                         *args, group=False)
+    ev, nev, plan = _launch("parse_events_big",
+                            load().lzt_parse_events_big, *args, group=False)
     parse_events_big.launches += 1
+    parse_events_big.last_plan = plan
     return ev, nev
 
 
@@ -282,13 +326,32 @@ def parse_events_probe(refbuf, qbuf, poslist, cand, next_hit, win, dsz,
     return ev, nev, counts
 
 
+def parse_events_big_probe(refbuf, qbuf, poslist, cand, next_hit, win, dsz,
+                           nrs, cfg: ParseCfg, ev_cap: int):
+    """``parse_events_big`` through the probe build (CUDA tensors only;
+    not counted as a launch): (ev, nev, counts), counts (G, B, NPROBE)
+    int64, each pair's PROBE_FIELDS."""
+    args = (refbuf, qbuf, poslist, cand, next_hit, win, dsz, nrs, cfg,
+            ev_cap)
+    _check("parse_events_big_probe", *args, big=True)
+    counts = torch.zeros((*cand.shape[:2], NPROBE), dtype=torch.int64,
+                         device=refbuf.device)
+    ev, nev, _ = _launch("parse_events_big_probe",
+                         load(probe=True).lzt_parse_events_big, *args,
+                         group=False, probe=counts)
+    return ev, nev, counts
+
+
 #: kernel launches since the last reset (plain-version calls never count);
 #: the group kernel's also by instantiation: the reference in shared
-#: memory, or read from device memory
+#: memory, or read from device memory; the plan of each wrapper's last
+#: launch (``_launch``), None before the first
 parse_events.launches = 0
 parse_events.launches_shared = 0
 parse_events.launches_device = 0
+parse_events.last_plan = None
 parse_events_big.launches = 0
+parse_events_big.last_plan = None
 
 
 # ---------------------------------------------------------------------------

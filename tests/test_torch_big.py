@@ -215,9 +215,21 @@ def test_all2all_row_over_max_big_syms_runs_native(tmp_path, monkeypatch,
 
 
 def test_big_launch_shape_fits_the_budget(monkeypatch):
+    """The launch's bytes, the kernel's bit planes counted (3/8 byte a
+    symbol, per reference and per query): a budget of exactly G
+    references x B_big queries fits G, a byte less G - 1."""
     codes = _family(8)
     eng = tce.CudaAll2All(codes, _params(20, 11), devices=[CPU])
     assert eng.big_launch_shape(5, CPU) == (5, eng.B)
+    B, LqP, LrP = eng.B, eng.LqP, eng.LrP_big
+    per_pair = 12 * LqP + 32 * (eng.EV_CAP_BIG + 1) + 4
+    per_query = 48 * LqP + 4 + 3 * LqP // 8
+    per_ref = 13 * LrP + 4 * eng.KaP_big + 3 * LrP // 8
+    exact = B * per_query + 3 * (per_ref + B * per_pair)
+    monkeypatch.setattr(tce.CudaAll2All, "CPU_BIG_BUDGET", exact)
+    assert eng.big_launch_shape(5, CPU) == (3, B)
+    monkeypatch.setattr(tce.CudaAll2All, "CPU_BIG_BUDGET", exact - 1)
+    assert eng.big_launch_shape(5, CPU) == (2, B)
     monkeypatch.setattr(tce.CudaAll2All, "CPU_BIG_BUDGET", 1)
     assert eng.big_launch_shape(5, CPU) == (1, 1)
 

@@ -23,6 +23,8 @@ from lzani_tpu_torch.ops.parse_kernel import (parse_events,
                                               parse_events_big_plain,
                                               parse_events_plain)
 from lzani_tpu_torch.synth import mutate, rand_params, small_family
+from test_torch_big_kernel import EDGES as BIG_EDGES
+from test_torch_big_kernel import assert_oracle, big_launch
 from test_torch_fold_kernel import EDGES, kernel_args
 
 pytestmark = pytest.mark.cuda
@@ -517,6 +519,47 @@ def test_big_kernel_random_stress(dev, block):
         checked += _assert_oracle(eng, parse_events_big(*args), codes, p,
                                   r_list)
     assert checked > 0
+
+
+@pytest.mark.parametrize("name", BIG_EDGES)
+def test_big_kernel_on_an_edge_input(dev, name):
+    """The edge inputs of test_torch_big_kernel.py (anchor positions of 59
+    and 149 candidates, a literal run to the desync, lengths at word
+    edges, self pairs and padding rows whose tables are garbage): kernel
+    = plain = oracle."""
+    codes, p, r_list, args = big_launch(name, dev)
+    out = parse_events_big(*args)
+    _assert_same_logs(out, parse_events_big_plain(*args))
+    assert assert_oracle(codes, p, r_list, *out) > 0
+
+
+def test_big_kernel_parses_a_pair_shorter_than_its_query_planes(dev):
+    """A query's planes are packed to its longest pair: pair (2, 0) (the
+    900 bp base inside the tandem genome at 2250) given a length that cuts
+    its 600-symbol exact match at 2250 in half reads the query as N from
+    there, and every pair's log equals the plain version's."""
+    _, _, args = _big_args(_tandem_set(), Params(), dev, force=True)
+    dsz = args[6].clone()
+    assert int(dsz[2, 0]) == int(dsz[:, 0].max()) == 2890
+    dsz[2, 0] = 2250 + 300
+    cut = (*args[:6], dsz, *args[7:])
+    ev, nev = parse_events_big(*cut)
+    _assert_same_logs((ev, nev), parse_events_big_plain(*cut))
+    assert ev[2, 0, :int(nev[2, 0]), :3].tolist() == [[0, 0, 300],
+                                                      [2250, 300, 300]]
+
+
+def test_big_kernel_probe_build(dev):
+    """The probe build's logs equal the kernel's; it counts every pair
+    that parses (steps > 0 exactly where dsz > msl) and is not a
+    launch."""
+    _, _, args = _big_args(_tandem_set(), Params(), dev, force=True)
+    n0 = parse_events_big.launches
+    ev, nev, counts = pk.parse_events_big_probe(*args)
+    assert parse_events_big.launches == n0
+    _assert_same_logs((ev, nev), parse_events_big(*args))
+    steps = counts[..., pk.PROBE_FIELDS.index("steps")]
+    assert torch.equal(steps > 0, args[6] > args[8].msl)
 
 
 def test_big_launch_counter(dev):

@@ -304,9 +304,10 @@ def test_big_launch_shape_splits_a_shared_device(monkeypatch):
     p.min_anchor_len, p.min_seed_len = 16, 9
     one = tce.CudaAll2All(codes, p, devices=["cpu"])
     two = tce.CudaAll2All(codes, p, devices=["cpu", "cpu"])
-    per_ref = 13 * one.LrP_big + 4 * one.KaP_big
-    per_query = 48 * one.LqP
-    per_pair = 12 * one.LqP + 32 * (one.EV_CAP_BIG + 1)
+    # the launch's bytes, the kernel's bit planes (3/8 byte a symbol) too
+    per_ref = 13 * one.LrP_big + 4 * one.KaP_big + 3 * one.LrP_big // 8
+    per_query = 48 * one.LqP + 4 + 3 * one.LqP // 8
+    per_pair = 12 * one.LqP + 32 * (one.EV_CAP_BIG + 1) + 4
     # a budget that holds two references x one query, and no more
     monkeypatch.setattr(tce.CudaAll2All, "CPU_BIG_BUDGET",
                         2 * (per_ref + per_pair) + per_query + 1)
