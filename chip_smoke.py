@@ -28,10 +28,17 @@ non-zero):
      (the one a reference too large for shared memory takes) on the same
      inputs, its logs against the same plain logs, timed; then the probe
      build: the heaviest pair's warp span and counts by kind of step;
+     then the dispatch's logs, downloaded as the main path downloads
+     them, replayed with regions as one unit by the batched native entry
+     (``UnitReplay``, ``lza_replay_unit``) and pair by pair
+     (``Finalizer``): triples and region records (as a set) equal, both
+     timed;
   4. the port's CLI (``python -m lzani_tpu_torch all2all ... --backend
      cuda``, driven in-process through ``cli.run``) on a seeded synthetic
      viral set: 256 genomes of 20-60 kb in 24 families plus 15% unrelated
-     genomes (65,280 ordered pairs);
+     genomes (65,280 ordered pairs), and the split of its LZ matching:
+     set-up, dispatch, download, the replay's native calls and wall, and
+     the wait for the replay pool after the last download;
   5. the port's native CLI (``python -m lzani_tpu_torch ... --backend
      native``, a subprocess) on the same file: TSV and ids byte-equal,
      aln as a set;
@@ -244,12 +251,62 @@ def check_kernel(dev, codes, params):
 
     eng = ce.CudaAll2All(codes, params, devices=[dev])
     gi = eng.build_group_index([0, 1, 2, 3], dev)
-    args, _ = eng.group_args(gi, 0, dev)
+    args, overflow = eng.group_args(gi, 0, dev)
     series = {}
     k = kernel_vs_plain(parse_events, parse_events_plain, args,
                         args[6].expand(4, -1), reps=10, series=series)
     return dict(k, LrP=gi.LrP, LqP=eng.LqP, B=eng.B, args=args,
-                series=series)
+                series=series, eng=eng, overflow=overflow)
+
+
+def check_replay_unit(codes, params, k, td):
+    """Phase 3d: phase 3's G = 4 x B logs (the kernel's, equal to the
+    plain version's) downloaded as the main path downloads them, then
+    replayed with regions twice: as one unit through the batched native
+    entry (``UnitReplay``, one call) and pair by pair (``Finalizer``).
+    The triples and the region records (as a set) must be equal. Returns
+    (pairs, records, pairs without a log, batched s, per-pair s)."""
+    import numpy as np
+
+    from lzani_tpu_torch.core.native_engine import read_region_dump
+    from lzani_tpu_torch.ops.finalize import (Finalizer, UnitReplay,
+                                              row_wanted, unit_pairs)
+
+    eng = k["eng"]
+    logs = eng.collect_group((k["ev"], k["nev"], k["overflow"]))
+    n, B = len(codes), eng.B
+    r_list = [0, 1, 2, 3]
+    pg, pr, pq, pslot, pb = unit_pairs(
+        r_list, [row_wanted(r, n) for r in r_list],
+        lambda qs: (qs < B, qs))
+    nev = logs.nev[pg, pb]
+    res = {}
+    for how in ("unit", "pairs"):
+        out = np.zeros((n * (n - 1), 3), np.int32)
+        path = os.path.join(td, f"replay_{how}.bin")
+        with open(path, "wb") as rf:
+            t0 = time.perf_counter()
+            if how == "unit":
+                UnitReplay(codes, params, out, rf)(
+                    pr, pq, pslot, nev, logs.offsets(pg, pb), logs.ev)
+            else:
+                fin = Finalizer(codes, params, out, rf)
+                rows = [logs[g] for g in range(len(r_list))]
+                for g, r, q, s in zip(pg.tolist(), pr.tolist(), pq.tolist(),
+                                      pslot.tolist()):
+                    fin(r, q, rows[g][q], s)
+            dt = time.perf_counter() - t0
+        recs = sorted((r, q, regs.tobytes())
+                      for r, q, regs in read_region_dump(path))
+        res[how] = (out, recs, dt)
+    (out_u, recs_u, t_u), (out_p, recs_p, t_p) = res["unit"], res["pairs"]
+    if not np.array_equal(out_u, out_p) or recs_u != recs_p:
+        raise AssertionError("batched replay differs from the per-pair "
+                             "replay on phase 3's logs")
+    if not out_u[pslot].any() or len(recs_u) != len(pr):
+        raise AssertionError("phase 3's replay wrote no triple, or not one "
+                             "region record a pair")
+    return len(pr), len(recs_u), int((nev < 0).sum()), t_u, t_p
 
 
 def check_device_words(args, ref, reps=3):
@@ -1186,6 +1243,14 @@ def main() -> int:
     heavy = probe_heaviest(k["args"], k)
     say(3, f"probe build on the same dispatch, logs equal: the heaviest "
            f"pair {json.dumps(heavy)} [{smi}]")
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix="chip_smoke_") as td:
+        ru = check_replay_unit(codes, params, k, td)
+    say(3, f"the same dispatch's logs replayed with regions: one batched "
+           f"native call (lza_replay_unit) == per pair (Finalizer) on "
+           f"{ru[0]} pairs ({ru[2]} without a log, parsed natively): "
+           f"triples equal, {ru[1]} region records equal as a set; "
+           f"{ru[3]:.3f} s batched (one thread) against {ru[4]:.3f} s per "
+           f"pair [{smi}]")
 
     nthreads = str(os.cpu_count() or 1)
     n_pairs = N_GENOMES * (N_GENOMES - 1)
@@ -1205,6 +1270,15 @@ def main() -> int:
                f"{n_pairs / t_cuda:.1f} pairs/s, launches {launches} "
                f"{json.dumps(m.launch_counts)}, "
                f"engine {json.dumps(st)}; phases: {phase_times(m.times)}")
+        say(4, f"LZ matching {t_cuda_match:.2f} s (native "
+               f"{t_native_match:.2f} s): set-up {st['setup_s']:.2f} s, "
+               f"dispatch {st['dispatch_s']:.2f} s, download "
+               f"{st['download_s']:.2f} s (its sync "
+               f"{st['download_sync_s']:.2f} s), replay in C "
+               f"{st['replay_c_s']:.2f} s summed over the pool's threads, "
+               f"replay wall {st['replay_wall_s']:.2f} s for "
+               f"{st['replay_pairs']} pairs, the wait for the pool after "
+               f"the last download {st['replay_tail_s']:.2f} s [{smi}]")
         say(5, f"port CLI --backend native: {t_native:.2f} s; TSV ({n_rows} "
                f"rows) and ids byte-equal, aln ({n_aln} rows) equal as a "
                f"set; phases: {cli_timings(nat_err)}")

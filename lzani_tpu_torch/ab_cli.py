@@ -3,7 +3,7 @@
     python -m lzani_tpu_torch.ab_cli --tree OLD_DIR --tree NEW_DIR \\
         [--set viral|bacterial] [--n 256] [--seed 2024] \\
         [--backend auto] [--backend hybrid] [--backend cuda] \\
-        [--backend native] [--rounds 1]
+        [--backend native] [--rounds 1] [--aln]
 
 Writes one seeded synthetic FASTA (``synth.viral_set`` of `n` genomes, or
 ``synth.bacterial_set`` with ``--mal 20 --msl 11 --reg 80``), then, per
@@ -17,7 +17,10 @@ hybrid's warm-up never starts, so it would build nothing).
 Prints one line per timed run: wall seconds, pairs/s, the CLI's own
 phase timings and (cuda, hybrid, auto) its engine counters, beside the
 card's name and power limit; and fails when two runs' TSV or ids files
-differ, across checkouts and across backends. A checkout whose CLI has
+differ, across checkouts and across backends. With ``--aln`` every run
+also writes the alignment file (``--out-alignment``), whose rows must be
+equal as a set across runs (their order follows thread timing). A
+checkout whose CLI has
 no hybrid backend (before the port had one, ``auto`` meant ``cuda``) is
 left out of the ``hybrid`` and ``auto`` turns. The default backends are
 all four. Host clocks vary between calls, so compare only within one
@@ -49,6 +52,8 @@ def main(argv=None) -> int:
     ap.add_argument("--backend", action="append")
     ap.add_argument("--rounds", type=int, default=1,
                     help="times the turns (A, B, B, A) are run")
+    ap.add_argument("--aln", action="store_true",
+                    help="write and compare the alignment file too")
     a = ap.parse_args(argv)
     trees = [os.path.abspath(t) for t in a.tree]
     smi = card_name_and_power()
@@ -72,6 +77,8 @@ def main(argv=None) -> int:
             cmd = [sys.executable, "-m", "lzani_tpu_torch", "all2all",
                    "--in-fasta", fasta, "--out", out, "-t", nthreads,
                    "-V", "2", *flags, "--backend", backend]
+            if a.aln:
+                cmd += ["--out-alignment", out + ".aln"]
             t0 = time.perf_counter()
             res = subprocess.run(cmd, cwd=tree, capture_output=True,
                                  text=True)
@@ -89,7 +96,7 @@ def main(argv=None) -> int:
             return "hybrid" in res.stdout.split()
 
         hybrid_trees = [t for t in trees if has_hybrid(t)]
-        want = None
+        want = want_aln = None
         for backend in a.backend or ["auto", "hybrid", "cuda", "native"]:
             these = hybrid_trees if backend in HYBRID_BACKENDS else trees
             for tree in these:
@@ -105,6 +112,16 @@ def main(argv=None) -> int:
                     want = got
                 elif got != want:
                     raise AssertionError(f"{tree} {backend}: output differs")
+                if a.aln:
+                    with open(out + ".aln", "rb") as fh:
+                        head, *rows = fh.read().splitlines()
+                    got_aln = (head, sorted(rows))
+                    if want_aln is None:
+                        want_aln = got_aln
+                    elif got_aln != want_aln:
+                        raise AssertionError(f"{tree} {backend}: aln rows "
+                                             f"differ")
+                    os.remove(out + ".aln")
                 st = engine_stats(res.stderr)
                 print(f"{a.set} {backend} {tree}: {wall:.2f} s, "
                       f"{n_pairs / wall:.1f} pairs/s, -t {nthreads}; "

@@ -36,7 +36,7 @@ def get_lib():
         lib = ct.CDLL(build.build_gxx("lzani_core", [_SRC]))
 
         lib.lza_abi_version.restype = ct.c_int32
-        assert lib.lza_abi_version() == 4
+        assert lib.lza_abi_version() == 5
 
         lib.lza_parse_pair.restype = ct.c_int64
         lib.lza_parse_pair.argtypes = [
@@ -94,6 +94,16 @@ def get_lib():
             ct.c_char_p, ct.c_int32, ct.c_double, ct.c_double, ct.c_double,
             ct.POINTER(ct.c_int64), ct.POINTER(ct.c_int64),
         ]
+        i32p, i64p = ct.POINTER(ct.c_int32), ct.POINTER(ct.c_int64)
+        lib.lza_replay_unit.restype = ct.c_int64
+        lib.lza_replay_unit.argtypes = [
+            ct.POINTER(ct.c_uint64), i64p, ct.c_int32, ct.POINTER(LzaCfg),
+            ct.c_int64, i32p, i32p, i64p, i32p, i64p, i32p, ct.c_int64,
+            i32p, i32p, ct.c_int32, ct.c_int32, ct.c_double, ct.c_double,
+            ct.c_double, ct.c_int32, ct.POINTER(i32p), i64p,
+        ]
+        lib.lza_free.restype = None
+        lib.lza_free.argtypes = [ct.c_void_p]
         lib.lza_claim_head.restype = ct.c_int64
         lib.lza_claim_head.argtypes = [ct.POINTER(ct.c_int64)]
         lib.lza_claim_tail.restype = ct.c_int64
@@ -273,6 +283,89 @@ def replay_events(ref: np.ndarray, query: np.ndarray, params,
                                 stats.ctypes.data_as(ct.POINTER(ct.c_int32)),
                                 regs.ctypes.data_as(ct.POINTER(ct.c_int32)), n)
     return tuple(int(x) for x in stats), regs[:n]
+
+
+class SeqTable:
+    """The sequences as ``lza_replay_unit`` takes them: a pointer and a
+    length each, packed (``PackedCodes``, zero-copy) or raw codes (kept
+    alive here for the table's lifetime)."""
+
+    def __init__(self, codes):
+        from ..io.packing import PackedCodes
+
+        if isinstance(codes, PackedCodes):
+            self.packed, self._keep = 1, codes
+            self.ptrs, self.slens = codes.ptrs, codes.slens
+        else:
+            self.packed = 0
+            self._keep = [np.ascontiguousarray(c, np.uint8) for c in codes]
+            self.ptrs = np.array([c.ctypes.data for c in self._keep],
+                                 np.uint64)
+            self.slens = np.array([len(c) for c in self._keep], np.int64)
+
+    def __len__(self):
+        return len(self.slens)
+
+
+def replay_unit(seqs: SeqTable, cfg: LzaCfg, r, q, slot, nev, off,
+                ev: np.ndarray, out: np.ndarray, want_regions: bool = False,
+                flt: dict | None = None, threads: int = 1):
+    """Replay a unit of event logs in one native call (``lza_replay_unit``,
+    run without the interpreter lock): pair k is reference ``r[k]`` x
+    query ``q[k]``, its triple goes to ``out[slot[k]]`` (`out` a C-ordered
+    int32 (S, 3) array), its log is ``ev[off[k]:off[k] + nev[k]]`` of the
+    (N, 8) int32 record block `ev`, or it is parsed natively when
+    ``nev[k] < 0``. Pairs of one reference should be consecutive (its
+    buffers are built once a run of them); the runs are spread over up
+    to `threads` native threads. `flt` is the output filter (gani / ani
+    / qcov) of the region records.
+
+    Returns (status int32 per pair: 0 replayed, 1 parsed natively, -1 log
+    rejected and its slot left as it was; the region records as int32
+    words in ``read_region_dump``'s format, empty without regions)."""
+    lib = get_lib()
+    r = np.ascontiguousarray(r, np.int32)
+    q = np.ascontiguousarray(q, np.int32)
+    slot = np.ascontiguousarray(slot, np.int64)
+    nev = np.ascontiguousarray(nev, np.int32)
+    off = np.ascontiguousarray(off, np.int64)
+    ev = np.ascontiguousarray(ev, np.int32).reshape(-1, 8)
+    k = len(r)
+    if not (len(q) == len(slot) == len(nev) == len(off) == k):
+        raise ValueError("replay_unit: pair arrays of unequal length")
+    if out.dtype != np.int32 or out.ndim != 2 or out.shape[1] != 3 or \
+            not out.flags.c_contiguous:
+        raise ValueError("replay_unit: out must be C-ordered int32 (S, 3)")
+    n = len(seqs)
+    has = nev >= 0
+    if k and (r.min() < 0 or r.max() >= n or q.min() < 0 or q.max() >= n
+              or slot.min() < 0 or slot.max() >= len(out)
+              or (has & ((off < 0) | (off + nev > len(ev)))).any()):
+        raise ValueError("replay_unit: a pair index, slot or log range is "
+                         "out of bounds")
+    status = np.zeros(k, np.int32)
+    flt = flt or {}
+    rec = ct.POINTER(ct.c_int32)()
+    rec_len = ct.c_int64(0)
+    ptr = lambda a, t: a.ctypes.data_as(ct.POINTER(t))
+    rc = lib.lza_replay_unit(
+        ptr(seqs.ptrs, ct.c_uint64), ptr(seqs.slens, ct.c_int64),
+        seqs.packed, ct.byref(cfg), k, ptr(r, ct.c_int32),
+        ptr(q, ct.c_int32), ptr(slot, ct.c_int64), ptr(nev, ct.c_int32),
+        ptr(off, ct.c_int64), ptr(ev, ct.c_int32), len(ev),
+        ptr(out, ct.c_int32), ptr(status, ct.c_int32),
+        1 if want_regions else 0, 1 if flt else 0, flt.get("gani", 0.0),
+        flt.get("ani", 0.0), flt.get("qcov", 0.0), max(1, int(threads)),
+        ct.byref(rec), ct.byref(rec_len))
+    words = np.zeros(0, np.int32)
+    if rec:
+        try:
+            words = np.ctypeslib.as_array(rec, (rec_len.value,)).copy()
+        finally:
+            lib.lza_free(rec)
+    if rc < 0:
+        raise ValueError("replay_unit: malformed unit")
+    return status, words
 
 
 def replay_factors(ref: np.ndarray, query: np.ndarray, params,

@@ -1646,6 +1646,144 @@ int64_t lza_claim_tail(int64_t* ctr, int64_t k, int64_t* got) {
     }
 }
 
-int32_t lza_abi_version(void) { return 4; }
+// Replay one downloaded unit of device event logs (the port's collect +
+// replay; not in the JAX package's copy of this file): a unit's pairs in
+// one call, so a caller's thread pool runs without the interpreter.
+//
+//   ptrs/slens/packed : the sequences, as lza_all2all_packed takes them
+//                       (packed = 1: radix-216 bytes), or packed = 0: raw
+//                       codes at ptrs[i]
+//   pr/pq/pslot       : each pair's reference, query and triple slot
+//                       (out + 3 * slot); a run of consecutive pairs with
+//                       one reference builds its composite buffer once
+//   pnev/poff         : its log's length and first record in `ev` (int32,
+//                       8 a record, as the kernels write them); pnev < 0
+//                       means no log (a capacity fallback): the pair is
+//                       parsed natively, the reference's tables built at
+//                       the run's first such pair
+//   n_ev              : records in `ev`; a log past its end is an error
+//   n_threads         : the runs are spread over up to this many threads
+//                       (1: the calling thread alone)
+//   status            : 0 replayed, 1 parsed natively, -1 log rejected
+//                       (bwd/ext cross-check; its slot is not written)
+//   rec/rec_len       : with want_regions, the region records of the
+//                       unit in lza_all2all's dump format {r, q, n, n*6},
+//                       after the gani/ani/qcov pre-filter when
+//                       flt_enabled (lz_matcher.cpp:115-138); malloc'd,
+//                       released with lza_free (NULL when there are none)
+// Returns the number of rejected logs, or -2 on malformed input (nothing
+// is returned in *rec then). No state outlives the call: concurrent calls
+// are safe.
+int64_t lza_replay_unit(const uint64_t* ptrs, const int64_t* slens,
+                        int32_t packed, const lza_cfg* cfg, int64_t n_pairs,
+                        const int32_t* pr, const int32_t* pq,
+                        const int64_t* pslot, const int32_t* pnev,
+                        const int64_t* poff, const int32_t* ev, int64_t n_ev,
+                        int32_t* out, int32_t* status, int32_t want_regions,
+                        int32_t flt_enabled, double flt_gani, double flt_ani,
+                        double flt_qcov, int32_t n_threads, int32_t** rec,
+                        int64_t* rec_len) {
+    *rec = nullptr;
+    *rec_len = 0;
+    for (int64_t k = 0; k < n_pairs; ++k)
+        if (pnev[k] >= 0 && (poff[k] < 0 || poff[k] + pnev[k] > n_ev))
+            return -2;
+    std::vector<int64_t> runs{0};  // [runs[i], runs[i + 1]): one reference
+    for (int64_t k = 1; k < n_pairs; ++k)
+        if (pr[k] != pr[k - 1]) runs.push_back(k);
+    runs.push_back(n_pairs);
+    const int64_t n_runs = n_pairs ? (int64_t)runs.size() - 1 : 0;
+    const lza::Cfg c = to_cfg(cfg);
+    auto get_seq = [&](int64_t i, std::vector<uint8_t>& scratch)
+        -> std::pair<const uint8_t*, int64_t> {
+        if (!packed) return {(const uint8_t*)(uintptr_t)ptrs[i], slens[i]};
+        lza::unpack3_into((const uint8_t*)(uintptr_t)ptrs[i], slens[i],
+                          scratch);
+        return {scratch.data(), slens[i]};
+    };
+    std::vector<std::vector<int32_t>> recs((size_t)n_runs);
+    std::atomic<int64_t> next_run{0}, rejected{0};
+
+    auto worker = [&]() {
+        lza::RefIndex idx;
+        lza::Parser p;
+        std::vector<uint8_t> r_scratch, q_scratch;
+        std::vector<lza::Region> regs;
+        for (int64_t i; (i = next_run.fetch_add(1)) < n_runs;) {
+            auto rseq = get_seq(pr[runs[i]], r_scratch);
+            idx.build(rseq.first, rseq.second, c, /*tables=*/false);
+            p.set_reference(idx);
+            bool tables = false;
+            std::vector<int32_t>& out_rec = recs[(size_t)i];
+            for (int64_t k = runs[i]; k < runs[i + 1]; ++k) {
+                auto [q_ptr, q_len] = get_seq(pq[k], q_scratch);
+                if (pnev[k] < 0) {
+                    if (!tables) {
+                        idx.build(rseq.first, rseq.second, c);
+                        tables = true;
+                    }
+                    p.set_query(q_ptr, q_len);
+                    p.parse();
+                    status[k] = 1;
+                } else {
+                    p.set_query(q_ptr, q_len, /*streams=*/false);
+                    if (!p.replay_events(ev + 8 * poff[k], pnev[k])) {
+                        status[k] = -1;
+                        rejected.fetch_add(1);
+                        continue;
+                    }
+                    status[k] = 0;
+                }
+                p.stats(out + 3 * pslot[k]);
+                if (!want_regions) continue;
+                p.regions(regs);
+                int64_t m = 0, l = 0;
+                for (const auto& g : regs) {
+                    m += g.n_match;
+                    l += g.n_mismatch;
+                }
+                if (flt_enabled) {
+                    double gani = (double)m / (double)q_len;
+                    double ani = (m + l) ? (double)m / (double)(m + l) : 0.0;
+                    double qcov = (double)(m + l) / (double)q_len;
+                    if (!(gani >= flt_gani && ani >= flt_ani &&
+                          qcov >= flt_qcov))
+                        continue;
+                }
+                out_rec.push_back(pr[k]);
+                out_rec.push_back(pq[k]);
+                out_rec.push_back((int32_t)regs.size());
+                for (const auto& g : regs) {
+                    const int32_t* gp = (const int32_t*)&g;
+                    out_rec.insert(out_rec.end(), gp, gp + 6);
+                }
+            }
+        }
+    };
+
+    int64_t nt = std::max<int64_t>(1, std::min<int64_t>(n_threads, n_runs));
+    std::vector<std::thread> ts;
+    for (int64_t t = 1; t < nt; ++t) ts.emplace_back(worker);
+    worker();
+    for (auto& t : ts) t.join();
+
+    size_t words = 0;
+    for (const auto& v : recs) words += v.size();
+    if (words) {
+        *rec = (int32_t*)std::malloc(words * sizeof(int32_t));
+        if (!*rec) return -2;
+        int32_t* o = *rec;
+        for (const auto& v : recs) {
+            std::memcpy(o, v.data(), v.size() * sizeof(int32_t));
+            o += v.size();
+        }
+        *rec_len = (int64_t)words;
+    }
+    return rejected.load();
+}
+
+void lza_free(void* p) { std::free(p); }
+
+int32_t lza_abi_version(void) { return 5; }
 
 }  // extern "C"

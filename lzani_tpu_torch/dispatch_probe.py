@@ -64,7 +64,9 @@ Prints, each line beside the card's name and power limit:
     parameters (G_big x B_big as ``all2all_cuda`` sizes it), as with
     ``--big`` (its probe build with ``--probe``);
   - kernel ms and bound of a group dispatch at LqP = 2^19 (two 261 kb
-    genomes: the query bucket where the JAX engine leaves its v7 kernel);
+    genomes: the query bucket where the JAX engine leaves its v7 kernel),
+    and its plain version's time (one call, host clock, on the card and
+    on the host CPU), its logs equal to the kernel's;
   - with ``--baseline``, the G = 4 x B = 256 dispatch, the row launch,
     the batch and the bacterial launch also through the other checkout's
     ``csrc/parse_events.cu`` (its entries called through the C interface
@@ -604,10 +606,24 @@ def main(argv=None) -> int:
                                0, dev)
     ms, out = _kernel_ms("lzt_parse_events", largs)
     bound, by = launch_bound_ms(largs, out[1], largs[6].expand(4, -1))
+    plain_ms = {}
+    for where in (dev, torch.device("cpu")):
+        p_args = [x.to(where) if isinstance(x, torch.Tensor) else x
+                  for x in largs]
+        t0 = time.perf_counter()
+        p_out = pk.parse_events_plain(*p_args)
+        torch.cuda.synchronize()
+        plain_ms[where.type] = (time.perf_counter() - t0) * 1e3
+        if not _same_logs(out, [t.to(dev) for t in p_out]):
+            raise AssertionError(f"LqP={leng.LqP} dispatch: kernel logs "
+                                 f"differ from the plain version's on "
+                                 f"{where}")
     print(f"group dispatch at LqP={leng.LqP} (G=4 with two dummy slots x "
           f"B={leng.B}; 261 kb genomes): {ms:.2f} ms, "
           f"{int(out[1].clamp(min=0).sum())} records, bound {bound:.4f} ms "
-          f"({by}) [{smi}]", flush=True)
+          f"({by}); plain version, logs equal, {plain_ms['cuda']:.1f} ms on "
+          f"the card, {plain_ms['cpu']:.1f} ms on the host CPU [{smi}]",
+          flush=True)
 
     if base_lib is not None:
         _versus(f"group dispatch G=4 B={B}", "lzt_parse_events",

@@ -15,7 +15,9 @@ dispatch covers G references x B queries: it unpacks the queries,
 gathers their anchor candidates, flags rows whose candidate count
 exceeds CNT_CAP, computes ``next_hit`` by a reverse cummin, and launches
 the parse kernel. The event logs come back
-to the host and are replayed by the native engine (``finalize.py``).
+to the host compacted (``EventLogs``: the kept records back to back),
+and each unit's logs are replayed by one native call on a thread pool
+(``finalize.UnitReplay``).
 
 Rows whose composite reference exceeds MAX_REF_SYMS, and every row when
 the query bucket exceeds MAX_Q or mal > 13 (no dense 4^mal table), take
@@ -40,6 +42,7 @@ from __future__ import annotations
 
 import os
 import sys
+import time
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -48,7 +51,7 @@ import torch
 from ..core import native_engine
 from .anchor_tables import SAT, build_win_table
 from .big import big_query_prep, big_ref_join
-from .finalize import Finalizer
+from .finalize import NO_PAIRS, UnitReplay, row_wanted, unit_pairs
 from .parse import ParseCfg
 from .parse_kernel import parse_events, parse_events_big
 from .prep import SYM_N_REF, SYM_N_SEQ, query_buffer_np, ref_buffer_np
@@ -327,7 +330,7 @@ class CudaRefIndex:
         events)."""
         args, overflow = self.batch_args(queries)
         return _download_logs(*parse_events(*args), self.MAXEV - 16,
-                              overflow.cpu().numpy())[0]
+                              overflow)[0]
 
     def parse_events(self, q_codes: np.ndarray) -> np.ndarray:
         """One query's event log; raises where it falls back."""
@@ -509,7 +512,7 @@ class CudaAll2All:
         None where the pair must be parsed natively (nev < 0, nev >
         EV_CAP, or an anchor bucket over CNT_CAP in the query row)."""
         ev, nev, overflow = handles
-        return _download_logs(ev, nev, self.EV_CAP, overflow.cpu().numpy())
+        return _download_logs(ev, nev, self.EV_CAP, overflow)
 
     # ---- one reference x a query range (pallas_engine.py:2584-2647) -----
 
@@ -620,28 +623,65 @@ class CudaAll2All:
         return _download_logs(ev, nev, self.EV_CAP_BIG)
 
 
-def _download_logs(ev, nev, cap, overflow=None):
-    """out[g][b] from a dispatch's (ev, nev): the first nev records, or
-    None where nev < 0, nev > cap or `overflow[g, b]` is set."""
-    nev_h = nev.cpu().numpy()
-    mx = max(min(int(nev_h.max(initial=0)), cap), 1)
-    ev_h = ev[:, :, :mx].cpu().numpy()
-    G, B = nev_h.shape
-    return [[None if ((overflow is not None and overflow[g, b])
-                      or not 0 <= nev_h[g, b] <= cap)
-             else ev_h[g, b, :nev_h[g, b]]
-             for b in range(B)] for g in range(G)]
+class EventLogs:
+    """A downloaded dispatch's event logs, compacted: `ev`, the (N, 8)
+    int32 host block of every kept log's records back to back, `nev`,
+    the (G, B) int32 log lengths, -1 where the pair has no log and is
+    parsed natively, `off`, the (G, B) int64 first record of each log
+    in `ev`, and `sync_s`, the host seconds the download waited for the
+    device before its copy. ``logs[g][b]`` is pair (g, b)'s (n, 8) log,
+    or None."""
+
+    __slots__ = ("ev", "nev", "off", "sync_s")
+
+    def __init__(self, ev: np.ndarray, nev: np.ndarray, off: np.ndarray,
+                 sync_s: float = 0.0):
+        self.ev, self.nev, self.off, self.sync_s = ev, nev, off, sync_s
+
+    def __len__(self):
+        return len(self.nev)
+
+    def __getitem__(self, g):
+        return [None if k < 0 else self.ev[o:o + k] for k, o in
+                zip(self.nev[g].tolist(), self.off[g].tolist())]
+
+    def offsets(self, g, b):
+        """First record of pair (g, b)'s log in `ev`."""
+        return self.off[g, b]
+
+
+def _download_logs(ev, nev, cap, overflow=None) -> EventLogs:
+    """``EventLogs`` of a dispatch's (ev, nev): a pair keeps its first nev
+    records, and has no log where nev < 0, nev > cap or `overflow[g, b]`
+    is set. The kept records are gathered densely on the device first,
+    so the copy moves the sum of the kept logs' lengths, not G x B times
+    the longest."""
+    G, B, width = ev.shape[:3]
+    keep = (nev >= 0) & (nev <= cap)
+    if overflow is not None:
+        keep &= ~overflow.to(torch.bool)
+    t0 = time.perf_counter()
+    nev_h = torch.where(keep, nev, -1).to(torch.int32).cpu().numpy()
+    sync_s = time.perf_counter() - t0
+    lens = np.maximum(nev_h, 0).reshape(-1).astype(np.int64)
+    off = np.cumsum(lens) - lens
+    total = int(lens.sum())
+    if total == 0:
+        return EventLogs(np.zeros((0, 8), np.int32), nev_h,
+                         off.reshape(G, B), sync_s)
+    dev = ev.device
+    lens_d = torch.from_numpy(lens).to(dev)
+    pair = torch.repeat_interleave(torch.arange(G * B, device=dev), lens_d,
+                                   output_size=total)
+    rec = (torch.arange(total, device=dev)
+           - torch.from_numpy(off).to(dev)[pair])
+    block = ev.reshape(G * B * width, 8)[pair * width + rec]
+    return EventLogs(block.cpu().numpy(), nev_h, off.reshape(G, B), sync_s)
 
 
 # ---------------------------------------------------------------------------
 # all-vs-all
 # ---------------------------------------------------------------------------
-
-def _finalize_many(finalize, r, items):
-    """Replay one reference row's pairs on one pool task."""
-    for q, ev, slot in items:
-        finalize(r, q, ev, slot)
-
 
 def all2all_cuda(codes, params, filter_csr=None, progress=None,
                  replay_threads: int = 0, region_path: str | None = None,
@@ -671,8 +711,23 @@ def all2all_cuda(codes, params, filter_csr=None, progress=None,
     native_row_pairs (rows routed to the native engine), big_rows,
     G_big and B_big (references and queries per long-genome launch),
     replay_mismatches (logs the replay rejected), dispatches,
-    launches / big_launches (kernel launches of each path) and
-    device_units (the units each device entry ran).
+    launches / big_launches (kernel launches of each path),
+    device_units (the units each device entry ran), and the host clocks
+    of the run: setup_s (entry to the first dispatch), dispatch_s and
+    download_s (the main thread's seconds in index builds and
+    dispatches, and in downloads, the sync included), download_sync_s
+    (of download_s, the sync: the wait for the device, which on the one
+    stream also covers the next unit's prep and kernel), replay_tail_s
+    (its wait for the replay pool after the last download), replay_c_s
+    (the seconds inside the native replay calls, summed over the pool's
+    threads), replay_wall_s (first replay task submitted to last one
+    finished) and replay_pairs (pairs replayed or parsed by the pool).
+
+    Each downloaded unit is replayed by one native call
+    (``finalize.UnitReplay``) on a pool of `replay_threads` threads (all
+    cores but one by default), which run in parallel: the call releases
+    the interpreter lock. A long-genome unit's call spreads its
+    references over that many native threads.
 
     Raises RuntimeError after the run when any kernel log failed the
     replay's cross-check: the kernel computed a wrong stream, and those
@@ -680,6 +735,7 @@ def all2all_cuda(codes, params, filter_csr=None, progress=None,
     """
     from . import parse_kernel
 
+    t_entry = time.perf_counter()
     verbosity = getattr(params, "verbosity_level", 1)
 
     def _warn(msg, level=1):
@@ -694,7 +750,9 @@ def all2all_cuda(codes, params, filter_csr=None, progress=None,
               big_cap_fallbacks=0, big_fallback_pairs=[], native_rows=0,
               native_row_pairs=0, big_rows=0, G_big=0, B_big=0,
               replay_mismatches=0, dispatches=0, launches=0, big_launches=0,
-              device_units=[])
+              device_units=[], setup_s=0.0, dispatch_s=0.0, download_s=0.0,
+              download_sync_s=0.0, replay_tail_s=0.0, replay_c_s=0.0, replay_wall_s=0.0,
+              replay_pairs=0)
     if stats is not None:
         stats.update(st)
 
@@ -737,13 +795,8 @@ def all2all_cuda(codes, params, filter_csr=None, progress=None,
     rows = {"group": [], "big": [], "native": []}
     idle_rows = 0   # rows with no pair to compute (another process's)
     for r in range(n):
-        if filter_csr is None:
-            wanted = {q: (r, q - 1 if q > r else q)
-                      for q in range(n) if q != r}
-        else:
-            wanted = {int(q): int(indptr[r]) + k
-                      for k, q in enumerate(ids[indptr[r]:indptr[r + 1]])}
-        if not wanted:
+        qs, slots = row_wanted(r, n, filter_csr)
+        if not len(qs):
             idle_rows += 1
             continue
         if eng.paths[r] == "native":
@@ -751,7 +804,7 @@ def all2all_cuda(codes, params, filter_csr=None, progress=None,
                   f" bp): composite of {2 * int(eng.dszs[r]) + cfg.mrd} "
                   f"symbols exceeds {CudaAll2All.MAX_BIG_SYMS}; row runs on "
                   f"the native engine")
-        rows[eng.paths[r]].append((r, wanted))
+        rows[eng.paths[r]].append((r, (qs, slots)))
 
     # groups: (kind, r_list, wanteds). Group-path groups are padded to G
     # with dummy references (r = -1); long-genome groups are not
@@ -761,7 +814,7 @@ def all2all_cuda(codes, params, filter_csr=None, progress=None,
         chunk = rows["group"][i0:i0 + G]
         pad = G - len(chunk)
         groups.append(("group", [r for r, _ in chunk] + [-1] * pad,
-                       [w for _, w in chunk] + [{}] * pad))
+                       [w for _, w in chunk] + [NO_PAIRS] * pad))
     if rows["big"]:
         G_big, B_big = eng.big_launch_shape(len(rows["big"]),
                                             share=card_share)
@@ -774,88 +827,83 @@ def all2all_cuda(codes, params, filter_csr=None, progress=None,
             groups.append(("big", [r for r, _ in chunk],
                            [w for _, w in chunk]))
 
-    units = []  # (gi, lo or (idx, posof), subs[g] = {q: slot})
+    # units: (gi, lo, gathered query rows or None, pairs (g, r, q, slot, b))
+    units = []
     for gi, (kind, r_list, wanteds) in enumerate(groups):
         if kind == "big" or filter_csr is None:
             # contiguous query windows (the long-genome path uses them
             # under a filter too, as the JAX engine does)
             width = eng.B_big if kind == "big" else eng.B
             for lo in range(0, eng.n_pad, width):
-                subs = [{q: s for q, s in w.items() if lo <= q < lo + width}
-                        for w in wanteds]
-                if any(subs):
-                    units.append((gi, lo, subs))
+                pairs = unit_pairs(r_list, wanteds, lambda qs: (
+                    (qs >= lo) & (qs < lo + width), qs - lo))
+                if len(pairs[0]):
+                    units.append((gi, lo, None, pairs))
         else:
             # sparse filter: dispatch the group's wanted queries gathered
             # densely (pallas_engine.py:1545-1560)
-            uq = sorted(set().union(*[set(w) for w in wanteds]))
+            uq = np.unique(np.concatenate([qs for qs, _ in wanteds]))
             for c0 in range(0, len(uq), eng.B):
                 chunk = uq[c0:c0 + eng.B]
                 idx = np.full(eng.B, chunk[-1], np.int64)
                 idx[:len(chunk)] = chunk
-                posof = {q: k for k, q in enumerate(chunk)}
-                subs = [{q: s for q, s in w.items() if q in posof}
-                        for w in wanteds]
-                units.append((gi, (idx, posof), subs))
+                pairs = unit_pairs(r_list, wanteds, lambda qs: (
+                    np.isin(qs, chunk), np.searchsorted(chunk, qs)))
+                units.append((gi, None, idx, pairs))
 
     # the Sequences% counter: a reference row counts when its last unit
     # drains (pallas_engine.py:1575-1580); rows without units count now,
     # those with no pair at all too
     group_rem = [0] * len(groups)
-    for gi, _, _ in units:
+    for gi, _, _, _ in units:
         group_rem[gi] += 1
     group_nreal = [sum(r >= 0 for r in rl) for _, rl, _ in groups]
-    total_pairs = (sum(len(s) for u in units for s in u[2])
-                   + sum(len(w) for _, w in rows["native"]))
+    total_pairs = (sum(len(u[3][0]) for u in units)
+                   + sum(len(w[0]) for _, w in rows["native"]))
     seqs_done = idle_rows + sum(group_nreal[gi] for gi in range(len(groups))
                                 if group_rem[gi] == 0)
 
     nthreads = replay_threads or max(2, (os.cpu_count() or 2) - 1)
     rf = open(region_path, "wb") if region_path else None
     try:
-        fin = Finalizer(codes, params, out, rf)
+        rep = UnitReplay(codes, params, out, rf)
         done_pairs = 0
         with ThreadPoolExecutor(max_workers=nthreads) as pool:
             futs = []
             # native rows first: the pool works on them while the device
             # runs the kernel units
-            for r, wanted in rows["native"]:
-                futs.append(pool.submit(
-                    _finalize_many, fin, r,
-                    [(q, None, s) for q, s in wanted.items()]))
-                st["native_row_pairs"] += len(wanted)
+            for r, (qs, slots) in rows["native"]:
+                futs.append(pool.submit(rep.parse_row, r, qs, slots))
+                st["native_row_pairs"] += len(qs)
             st["native_rows"] = len(rows["native"])
             st["big_rows"] = len(rows["big"])
 
             def drain(unit, handles):
                 nonlocal done_pairs, seqs_done
-                gi, lo, subs = unit
-                kind, r_list, _ = groups[gi]
-                big = kind == "big"
-                posof = lo[1] if isinstance(lo, tuple) else None
-                evs = (eng.collect_big(handles) if big
-                       else eng.collect_group(handles))
-                for g, r in enumerate(r_list):
-                    items = []
-                    for q, s in subs[g].items():
-                        b = posof[q] if posof is not None else q - lo
-                        ev = evs[g][b]
-                        if ev is None:
-                            if big:
-                                st["big_cap_fallbacks"] += 1
-                                st["big_fallback_pairs"].append([r, q])
-                            else:
-                                st["cap_fallbacks"] += 1
-                            _warn(f"lz-ani-torch: pair ({r},{q}) fell back "
-                                  f"to the native engine (event/anchor "
-                                  f"capacity)", level=2)
-                        else:
-                            st["big_pairs" if big else "kernel_pairs"] += 1
-                        items.append((q, ev, s))
-                    if items:
-                        futs.append(pool.submit(_finalize_many, fin, r,
-                                                items))
-                    done_pairs += len(subs[g])
+                gi, _, _, (pg, pr, pq, pslot, pb) = unit
+                big = groups[gi][0] == "big"
+                t0 = time.perf_counter()
+                logs = (eng.collect_big(handles) if big
+                        else eng.collect_group(handles))
+                st["download_s"] += time.perf_counter() - t0
+                st["download_sync_s"] += logs.sync_s
+                nev = logs.nev[pg, pb]
+                fb = np.flatnonzero(nev < 0)
+                for r, q in zip(pr[fb].tolist(), pq[fb].tolist()):
+                    if big:
+                        st["big_fallback_pairs"].append([r, q])
+                    _warn(f"lz-ani-torch: pair ({r},{q}) fell back to the "
+                          f"native engine (event/anchor capacity)", level=2)
+                st["big_cap_fallbacks" if big else "cap_fallbacks"] += len(fb)
+                st["big_pairs" if big else "kernel_pairs"] += len(nev) - len(fb)
+                # a long-genome unit is a few megabase pairs, replayed
+                # while the pool has little else to do: its references go
+                # to several threads; a group unit is one of many, one
+                # thread each
+                futs.append(rep.submit(pool, pr, pq, pslot, nev,
+                                       logs.offsets(pg, pb), logs.ev,
+                                       threads=nthreads if big else 1))
+                done_pairs += len(pr)
                 group_rem[gi] -= 1
                 if group_rem[gi] == 0:
                     seqs_done += group_nreal[gi]
@@ -869,9 +917,11 @@ def all2all_cuda(codes, params, filter_csr=None, progress=None,
             n_ent = len(devices)
             inflight = []
             live = {}    # entry -> (group, its index on the entry's device)
+            st["setup_s"] = time.perf_counter() - t_entry
             for k, unit in enumerate(units):
-                gi, lo, _ = unit
+                gi, lo, qidx, _ = unit
                 kind, r_list, _ = groups[gi]
+                t0 = time.perf_counter()
                 e, dev = k % n_ent, eng.device_for(k)
                 if live.get(e, (None,))[0] != gi:
                     live.pop(e, None)            # free the previous index
@@ -881,11 +931,12 @@ def all2all_cuda(codes, params, filter_csr=None, progress=None,
                 idx = live[e][1]
                 if kind == "big":
                     handles = eng.dispatch_big(idx, r_list, lo, dev)
-                elif isinstance(lo, tuple):
+                elif qidx is not None:
                     handles = eng.dispatch_group(
-                        idx, None, dev, qrows=eng.gather_qrows(lo[0], dev))
+                        idx, None, dev, qrows=eng.gather_qrows(qidx, dev))
                 else:
                     handles = eng.dispatch_group(idx, lo, dev)
+                st["dispatch_s"] += time.perf_counter() - t0
                 st["dispatches"] += 1
                 st["device_units"][e] += 1
                 inflight.append((unit, handles))
@@ -893,15 +944,19 @@ def all2all_cuda(codes, params, filter_csr=None, progress=None,
                     drain(*inflight.pop(0))
             while inflight:
                 drain(*inflight.pop(0))
+            t0 = time.perf_counter()
             for f in futs:
                 f.result()
+            st["replay_tail_s"] = time.perf_counter() - t0
         if progress is not None:
             progress(total_pairs, total_pairs, n, n)
     finally:
         if rf is not None:
             rf.close()
 
-    st["replay_mismatches"] = fin.replay_mismatches
+    st.update(replay_mismatches=rep.replay_mismatches,
+              replay_c_s=rep.c_s, replay_wall_s=rep.wall_s,
+              replay_pairs=rep.pairs)
     st["launches"] = parse_kernel.parse_events.launches - launches0
     st["big_launches"] = parse_kernel.parse_events_big.launches - big_launches0
     fallbacks = st["cap_fallbacks"] + st["big_cap_fallbacks"]
@@ -914,5 +969,5 @@ def all2all_cuda(codes, params, filter_csr=None, progress=None,
         raise RuntimeError(
             f"lz-ani-torch: {st['replay_mismatches']} kernel event logs "
             f"failed the replay cross-check (first pairs (r, q): "
-            f"{fin.mismatched[:5]}); the kernel's output is wrong")
+            f"{rep.mismatched[:5]}); the kernel's output is wrong")
     return out

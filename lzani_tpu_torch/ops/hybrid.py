@@ -18,9 +18,11 @@ Where it differs from the JAX function:
     it has ended, so a run that was asked to use the card never
     succeeds without it. A warm-up that stops on the envelope or on a
     cancel is policy, not a failure.
-  * Event logs are replayed by ``finalize.Finalizer``: a log the replay
-    rejects is counted, and the run raises once it has ended, as
-    ``all2all_cuda`` does (the JAX function re-parses such a pair).
+  * Event logs are replayed by ``finalize.UnitReplay``, one native call
+    per downloaded unit without the interpreter lock (the JAX function
+    replays pair by pair): a log the replay rejects is counted, and the
+    run raises once it has ended, as ``all2all_cuda`` does (the JAX
+    function re-parses such a pair).
   * Rows off the group path (``CudaAll2All.paths``) run on the host, as
     in the JAX function. When every row would take the long-genome path
     (``CudaAll2All.big_only_reason``) the warm-up stops with
@@ -44,7 +46,7 @@ import numpy as np
 
 from ..core import native_engine
 from ..utils import cudadev
-from .finalize import Finalizer
+from .finalize import NO_PAIRS, UnitReplay, row_wanted, unit_pairs
 
 # ---- warm-thread lifecycle -------------------------------------------------
 # A warm-up thread still inside torch's import, the engine's construction
@@ -171,8 +173,13 @@ def all2all_hybrid(codes, params, filter_csr=None, progress=None,
     drain-to-drain EMA), duty_latched, launches (kernel launches, the
     dummy group's included), cap_fallbacks, replay_mismatches,
     native_rows (claimed rows off the group path), failed_rows (rows
-    re-run on the host after a device failure) and device_units (the
-    units each device entry ran).
+    re-run on the host after a device failure), device_units (the
+    units each device entry ran), and the device side's host clocks:
+    download_s (the drain threads' seconds in downloads, the sync
+    included), replay_c_s (the seconds inside the native replay calls,
+    summed over the pool's threads), replay_wall_s (first replay task
+    submitted to last one finished) and replay_pairs (pairs the pool
+    replayed or parsed).
     """
     if devices is not None and (device is not None or not devices):
         raise ValueError("all2all_hybrid: give `device` or a non-empty "
@@ -227,11 +234,8 @@ def all2all_hybrid(codes, params, filter_csr=None, progress=None,
                   file=sys.stderr, flush=True)
 
     def wanted_of(r):
-        """{query: output slot} of reference row r."""
-        if filter_csr is None:
-            return {q: (r, q - 1 if q > r else q) for q in range(n) if q != r}
-        return {int(q): int(indptr[r]) + k
-                for k, q in enumerate(ids[indptr[r]:indptr[r + 1]])}
+        """(queries, output slots) of reference row r."""
+        return row_wanted(r, n, filter_csr)
 
     def has_pairs(r):
         # a row of another process's share (multi-process) has none
@@ -239,7 +243,7 @@ def all2all_hybrid(codes, params, filter_csr=None, progress=None,
 
     side_path = region_path + ".device" if region_path else None
     rf = open(side_path, "wb") if side_path else None
-    fin = Finalizer(codes, params, out, rf)
+    rep = UnitReplay(codes, params, out, rf)
 
     # ---- CPU side: the native pool claims rows from the shared queue ----
     p2 = copy.copy(params)
@@ -265,18 +269,16 @@ def all2all_hybrid(codes, params, filter_csr=None, progress=None,
     dev_rows = [0]       # reference rows the device side has finished
     cap_fallbacks = 0
     native_rows = 0
-    sent = defaultdict(set)   # r -> queries handed to a replay task
+    sent = defaultdict(list)  # r -> arrays of queries handed to replay
+    download_s = 0.0
 
-    def fin_many(r, items):
-        # one replay task per reference row
-        for q, ev, slot in items:
-            fin(r, q, ev, slot)
+    def replayed(k):
         with lock:
-            dev_done[0] += len(items)
+            dev_done[0] += k
 
     def host_row(r, wanted):
         # a claimed row run on the host: off the group path, or recovered
-        _native_row(codes, params, r, wanted, out, fin)
+        rep.parse_row(r, *wanted)
         with lock:
             dev_rows[0] += 1
         report()
@@ -384,22 +386,22 @@ def all2all_hybrid(codes, params, filter_csr=None, progress=None,
     warm_thread = threading.Thread(target=_warm, name="lzani-hybrid-warm",
                                    daemon=True)
 
-    def drain(r_list, subs_lo, handles, t_disp, urem, nrows):
-        nonlocal device_pairs, cap_fallbacks
-        subs, lo = subs_lo
-        evs = eng.collect_group(handles)
-        n_sub = n_fb = 0
-        for g, r in enumerate(r_list):
-            items = [(q, evs[g][q - lo], slot) for q, slot in subs[g].items()]
-            if items:
-                n_fb += sum(ev is None for _, ev, _ in items)
-                with lock:
-                    sent[r].update(q for q, _, _ in items)
-                pending.append(pool.submit(fin_many, r, items))
-            n_sub += len(items)
+    def drain(r_list, pairs, handles, t_disp, urem, nrows):
+        nonlocal device_pairs, cap_fallbacks, download_s
+        pg, pr, pq, pslot, pb = pairs
+        t0 = time.perf_counter()
+        logs = eng.collect_group(handles)
+        dt = time.perf_counter() - t0
+        nev = logs.nev[pg, pb]
+        pending.append(rep.submit(pool, pr, pq, pslot, nev,
+                                  logs.offsets(pg, pb), logs.ev,
+                                  then=replayed))
         with lock:
-            device_pairs += n_sub
-            cap_fallbacks += n_fb
+            for g in np.unique(pg).tolist():
+                sent[r_list[g]].append(pq[pg == g])
+            download_s += dt
+            device_pairs += len(pr)
+            cap_fallbacks += int((nev < 0).sum())
             urem[0] -= 1
             if urem[0] == 0:   # the group's last unit: its rows are done
                 dev_rows[0] += nrows
@@ -572,18 +574,18 @@ def all2all_hybrid(codes, params, filter_csr=None, progress=None,
                     k_claim += 1
                     gf = pool.submit(eng.build_group_index, r_list,
                                      eng.devices[ent])
-                    wanteds = [wanted_of(r) if r >= 0 else {}
+                    wanteds = [wanted_of(r) if r >= 0 else NO_PAIRS
                                for r in r_list]
-                    dev_claimed += sum(len(w) for w in wanteds)
+                    dev_claimed += sum(len(w[0]) for w in wanteds)
                     g_units = []
                     for lo in range(0, eng.n_pad, eng.B):
-                        subs = [{q: s for q, s in w.items()
-                                 if lo <= q < lo + eng.B} for w in wanteds]
-                        if any(subs):
-                            g_units.append((lo, subs))
+                        pairs = unit_pairs(r_list, wanteds, lambda qs: (
+                            (qs >= lo) & (qs < lo + eng.B), qs - lo))
+                        if len(pairs[0]):
+                            g_units.append((lo, pairs))
                     urem = [len(g_units)]   # rows count at the last drain
-                    for lo, subs in g_units:
-                        unit_q.append((r_list, lo, subs, gf, ent, urem,
+                    for lo, pairs in g_units:
+                        unit_q.append((r_list, lo, pairs, gf, ent, urem,
                                        len(on_dev)))
                 if not unit_q and not inflight:
                     if done_claiming:
@@ -597,11 +599,11 @@ def all2all_hybrid(codes, params, filter_csr=None, progress=None,
                     continue
                 if unit_q:
                     current = unit_q.popleft()
-                    r_list, lo, subs, gf, ent, urem, nrows = current
+                    r_list, lo, pairs, gf, ent, urem, nrows = current
                     idx = gf.result()
                     t_disp = time.perf_counter()
                     handles = eng.dispatch_group(idx, lo, eng.devices[ent])
-                    inflight.append((r_list, (subs, lo), handles, t_disp,
+                    inflight.append((r_list, pairs, handles, t_disp,
                                      urem, nrows))
                     current = None
                     device_units[ent] += 1
@@ -635,9 +637,10 @@ def all2all_hybrid(codes, params, filter_csr=None, progress=None,
                   f"host, run continues on the native pool")
         # every drain has ended: `sent` is final
         for r in sorted(failed_rows):
-            left = {q: s for q, s in wanted_of(r).items()
-                    if q not in sent.get(r, ())}
-            pending.append(pool.submit(host_row, r, left))
+            qs, slots = wanted_of(r)
+            left = ~np.isin(qs, np.concatenate(sent[r])) if sent[r] else \
+                np.ones(len(qs), bool)
+            pending.append(pool.submit(host_row, r, (qs[left], slots[left])))
         warm_state["cancel"] = True  # a pending warm-up stops at its next
         #                              step boundary
         if warm_started and warm_thread.is_alive():
@@ -678,16 +681,17 @@ def all2all_hybrid(codes, params, filter_csr=None, progress=None,
         duty_latched=duty["latched"],
         launches=(kernels.parse_events.launches - warm_state["launches0"]
                   if kernels is not None else 0),
-        cap_fallbacks=cap_fallbacks, replay_mismatches=fin.replay_mismatches,
+        cap_fallbacks=cap_fallbacks, replay_mismatches=rep.replay_mismatches,
         native_rows=native_rows, failed_rows=len(failed_rows),
-        device_units=device_units)
+        device_units=device_units, download_s=download_s,
+        replay_c_s=rep.c_s, replay_wall_s=rep.wall_s, replay_pairs=rep.pairs)
     if stats is not None:
         stats.update(st)
-    if fin.replay_mismatches:
+    if rep.replay_mismatches:
         raise RuntimeError(
-            f"lz-ani-torch: {fin.replay_mismatches} kernel event logs "
+            f"lz-ani-torch: {rep.replay_mismatches} kernel event logs "
             f"failed the replay cross-check (first pairs (r, q): "
-            f"{fin.mismatched[:5]}); the kernel's output is wrong")
+            f"{rep.mismatched[:5]}); the kernel's output is wrong")
     why = warm_state["why"]
     warm_failed = why is not None and not why.startswith(("envelope:",
                                                           "cancelled"))
@@ -704,25 +708,3 @@ def _on_card(device) -> bool:
     """Whether `device` (a torch device or its name) is a CUDA device."""
     return str(device).split(":")[0] == "cuda"
 
-
-def _native_row(codes, params, r, wanted, out, fin):
-    """Run reference row r's `wanted` pairs ({query: slot}) on the host
-    into the shared buffer: pair by pair through the finalizer when it
-    writes regions, else one single-threaded native call (one index
-    build)."""
-    if not wanted:
-        return
-    if fin.rf is not None:
-        for q, slot in wanted.items():
-            fin(r, q, None, slot)
-        return
-    n = len(codes)
-    qs = sorted(wanted)
-    indptr = np.zeros(n + 1, np.int64)
-    indptr[r + 1:] = len(qs)
-    p1 = copy.copy(params)
-    p1.no_threads = 1
-    sub = native_engine.all2all(codes, p1,
-                                filter_csr=(indptr, np.array(qs, np.int32)))
-    for k, q in enumerate(qs):
-        out[wanted[q]] = sub[k]
