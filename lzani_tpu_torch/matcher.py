@@ -67,6 +67,15 @@ class Matcher:
         if self.params.verbosity_level >= level:
             print(msg, file=sys.stderr)
 
+    def _log_stats(self, stats: dict) -> None:
+        """The engine's counters at ``-V 2``, one JSON line; spans, when
+        recorded, as their count."""
+        if self.params.verbosity_level >= 2:
+            line = dict(stats)
+            if "spans" in line:
+                line["spans"] = len(line["spans"])
+            self._log(f"lz-ani-torch engine: {json.dumps(line)}", level=2)
+
     def _mark(self, label: str) -> None:
         self.times.append((time.perf_counter(), label))
 
@@ -241,7 +250,7 @@ class Matcher:
                                      progress=self._make_progress_cb(),
                                      device=self.device, stats=stats)
             self.engine_stats = stats
-            self._log(f"lz-ani-torch engine: {json.dumps(stats)}", level=2)
+            self._log_stats(stats)
         elif backend == "cuda":
             from .ops.cuda_engine import all2all_cuda
 
@@ -255,7 +264,7 @@ class Matcher:
                                    device=self.device, stats=stats,
                                    card_share=self.card_share)
             self.engine_stats = stats
-            self._log(f"lz-ani-torch engine: {json.dumps(stats)}", level=2)
+            self._log_stats(stats)
         elif backend == "jax" and region_path:
             # the automaton has no regions path: one native pass serves
             # the triples and the regions (lzani_tpu/matcher.py)
@@ -272,7 +281,7 @@ class Matcher:
                                   progress=self._make_progress_cb(),
                                   device=self.device, stats=stats)
             self.engine_stats = stats
-            self._log(f"lz-ani-torch engine: {json.dumps(stats)}", level=2)
+            self._log_stats(stats)
         else:
             raise ValueError(f"Unknown backend: {p.backend}")
         if self.num_processes > 1:

@@ -55,6 +55,7 @@ from .finalize import NO_PAIRS, UnitReplay, row_wanted, unit_pairs
 from .parse import ParseCfg
 from .parse_kernel import parse_events, parse_events_big
 from .prep import SYM_N_REF, SYM_N_SEQ, query_buffer_np, ref_buffer_np
+from .spans import OFF, Spans, UnitSpans, requested
 
 
 # ---------------------------------------------------------------------------
@@ -222,10 +223,11 @@ class GroupIndex:
     """Device state of a group of G references sharing the run-wide shape
     buckets (counterpart of PallasGroupIndex): packed composite buffers,
     WIN bit tables, composite lengths, plus the unpacked buffers and the
-    anchor join, built once on the device."""
+    anchor join, built once on the device. `spans` (``spans.UnitSpans``)
+    records the join's device time as ``dev.join``."""
 
     def __init__(self, codes_list, params, device, LrP: int | None = None,
-                 KaP: int | None = None):
+                 KaP: int | None = None, spans=OFF):
         cfg = ParseCfg.from_params(params)
         G = self.G = len(codes_list)
         rbs = [ref_buffer_np(c, cfg.mrd) for c in codes_list]
@@ -245,7 +247,9 @@ class GroupIndex:
         dev = torch.device(device)
         self.win = torch.from_numpy(wfs).to(dev)
         self.nrs = torch.from_numpy(nrs).to(dev)
-        self._join(self._upload(bufs, dev), cfg)
+        refbuf = self._upload(bufs, dev)
+        with spans.stage("dev.join"):
+            self._join(refbuf, cfg)
 
     def _upload(self, bufs, dev):
         """Upload the (G, LrP) uint8 buffers in the packed transfer form
@@ -470,14 +474,15 @@ class CudaAll2All:
         """Device of work unit k: entry k % len(devices) (round-robin)."""
         return self.devices[k % len(self.devices)]
 
-    def build_group_index(self, r_list, device=None) -> GroupIndex:
+    def build_group_index(self, r_list, device=None,
+                          spans=OFF) -> GroupIndex:
         """Device index of a reference group; r == -1 entries are cheap
         dummy slots that pad the final group to G."""
         dummy = np.zeros(16, np.uint8)
         return GroupIndex([self.codes[r] if r >= 0 else dummy
                            for r in r_list], self.params,
                           device or self.devices[0],
-                          LrP=self.LrP_ref, KaP=self.KaP_ref)
+                          LrP=self.LrP_ref, KaP=self.KaP_ref, spans=spans)
 
     def gather_qrows(self, idx, device=None):
         """Packed query rows and lengths of an arbitrary row set (the
@@ -501,18 +506,23 @@ class CudaAll2All:
         return ((gidx.refbuf, qbuf, gidx.poslist, cand, next_hit, gidx.win,
                  dsz_b.contiguous(), gidx.nrs, cfg, self.EV_CAP), overflow)
 
-    def dispatch_group(self, gidx: GroupIndex, lo, device=None, qrows=None):
+    def dispatch_group(self, gidx: GroupIndex, lo, device=None, qrows=None,
+                       spans=OFF):
         """Prep + kernel (``group_args``). Returns device tensors (ev, nev,
-        overflow); nothing is synchronised."""
-        args, overflow = self.group_args(gidx, lo, device, qrows)
-        return (*parse_events(*args), overflow)
+        overflow); nothing is synchronised. `spans` records the prep and
+        the launch (``unit.prep`` / ``dev.prep``, ``unit.launch`` /
+        ``dev.kernel``)."""
+        with spans.span("unit.prep"), spans.stage("dev.prep"):
+            args, overflow = self.group_args(gidx, lo, device, qrows)
+        with spans.span("unit.launch"), spans.stage("dev.kernel"):
+            return (*parse_events(*args), overflow)
 
-    def collect_group(self, handles):
+    def collect_group(self, handles, spans=OFF):
         """Download a dispatch -> out[g][b]: an (n, 8) int32 event log, or
         None where the pair must be parsed natively (nev < 0, nev >
         EV_CAP, or an anchor bucket over CNT_CAP in the query row)."""
         ev, nev, overflow = handles
-        return _download_logs(ev, nev, self.EV_CAP, overflow)
+        return _download_logs(ev, nev, self.EV_CAP, overflow, spans)
 
     # ---- one reference x a query range (pallas_engine.py:2584-2647) -----
 
@@ -586,11 +596,11 @@ class CudaAll2All:
         self.G_big, self.B_big = max(1, min(n_big, G)), B
         return self.G_big, self.B_big
 
-    def build_big_index(self, r_list, device=None) -> BigIndex:
+    def build_big_index(self, r_list, device=None, spans=OFF) -> BigIndex:
         """Device index of a group of long-genome references (any G)."""
         return BigIndex([self.codes[r] for r in r_list], self.params,
                         device or self.devices[0], LrP=self.LrP_big,
-                        KaP=self.KaP_big)
+                        KaP=self.KaP_big, spans=spans)
 
     def big_args(self, bidx: BigIndex, r_list, lo, device=None):
         """Prep of a long-genome dispatch: the arguments of
@@ -610,17 +620,21 @@ class CudaAll2All:
                 cand, next_hit, bidx.win, dsz.contiguous(), bidx.nrs, cfg,
                 self.EV_CAP_BIG)
 
-    def dispatch_big(self, bidx: BigIndex, r_list, lo, device=None):
+    def dispatch_big(self, bidx: BigIndex, r_list, lo, device=None,
+                     spans=OFF):
         """Prep + big kernel (``big_args``). Returns device tensors (ev,
-        nev); nothing is synchronised."""
-        return parse_events_big(*self.big_args(bidx, r_list, lo, device))
+        nev); nothing is synchronised. `spans` as ``dispatch_group``."""
+        with spans.span("unit.prep"), spans.stage("dev.prep"):
+            args = self.big_args(bidx, r_list, lo, device)
+        with spans.span("unit.launch"), spans.stage("dev.kernel"):
+            return parse_events_big(*args)
 
-    def collect_big(self, handles):
+    def collect_big(self, handles, spans=OFF):
         """Download a long-genome dispatch -> out[g][b]: an event log, or
         None where the pair must be parsed natively (nev < 0 or nev >
         EV_CAP_BIG: a capacity fallback)."""
         ev, nev = handles
-        return _download_logs(ev, nev, self.EV_CAP_BIG)
+        return _download_logs(ev, nev, self.EV_CAP_BIG, spans=spans)
 
 
 class EventLogs:
@@ -650,33 +664,46 @@ class EventLogs:
         return self.off[g, b]
 
 
-def _download_logs(ev, nev, cap, overflow=None) -> EventLogs:
+def _download_logs(ev, nev, cap, overflow=None, spans=OFF) -> EventLogs:
     """``EventLogs`` of a dispatch's (ev, nev): a pair keeps its first nev
     records, and has no log where nev < 0, nev > cap or `overflow[g, b]`
     is set. The kept records are gathered densely on the device first,
     so the copy moves the sum of the kept logs' lengths, not G x B times
-    the longest."""
+    the longest.
+
+    `spans` (``spans.UnitSpans``) splits the sync in two: on a card the
+    host first waits for the unit's own kernel (``unit.sync_own``), then
+    the copy of the lengths waits for the work queued after it
+    (``unit.sync_ahead``; the whole sync on the CPU). It also records
+    the gather's device time (``dev.compact``) and the host's gather and
+    copy (``unit.copy``)."""
     G, B, width = ev.shape[:3]
     keep = (nev >= 0) & (nev <= cap)
     if overflow is not None:
         keep &= ~overflow.to(torch.bool)
     t0 = time.perf_counter()
+    t_own = spans.wait_own(t0)
     nev_h = torch.where(keep, nev, -1).to(torch.int32).cpu().numpy()
-    sync_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    spans.host("unit.sync_ahead", t_own, t1)
     lens = np.maximum(nev_h, 0).reshape(-1).astype(np.int64)
     off = np.cumsum(lens) - lens
     total = int(lens.sum())
     if total == 0:
+        spans.host("unit.copy", t1)
         return EventLogs(np.zeros((0, 8), np.int32), nev_h,
-                         off.reshape(G, B), sync_s)
+                         off.reshape(G, B), t1 - t0)
     dev = ev.device
-    lens_d = torch.from_numpy(lens).to(dev)
-    pair = torch.repeat_interleave(torch.arange(G * B, device=dev), lens_d,
-                                   output_size=total)
-    rec = (torch.arange(total, device=dev)
-           - torch.from_numpy(off).to(dev)[pair])
-    block = ev.reshape(G * B * width, 8)[pair * width + rec]
-    return EventLogs(block.cpu().numpy(), nev_h, off.reshape(G, B), sync_s)
+    with spans.stage("dev.compact"):
+        lens_d = torch.from_numpy(lens).to(dev)
+        pair = torch.repeat_interleave(torch.arange(G * B, device=dev),
+                                       lens_d, output_size=total)
+        rec = (torch.arange(total, device=dev)
+               - torch.from_numpy(off).to(dev)[pair])
+        block = ev.reshape(G * B * width, 8)[pair * width + rec]
+    block = block.cpu().numpy()
+    spans.host("unit.copy", t1)
+    return EventLogs(block, nev_h, off.reshape(G, B), t1 - t0)
 
 
 # ---------------------------------------------------------------------------
@@ -723,6 +750,19 @@ def all2all_cuda(codes, params, filter_csr=None, progress=None,
     threads), replay_wall_s (first replay task submitted to last one
     finished) and replay_pairs (pairs replayed or parsed by the pool).
 
+    When a torch profiler is recording at entry, `stats` also receives
+    ``spans``: the call's spans (``ops/spans.py``; PERF.md names them
+    and the metrics that read them). Host spans: ``engine.setup`` (entry
+    to the first dispatch), ``engine.loop`` (from there to the end of
+    the last download), ``engine.replay_tail``; per unit ``unit.index``
+    (an index build), ``unit.prep``, ``unit.launch``, ``unit.sync_own``
+    (on a card: the wait for the unit's own kernel), ``unit.sync_ahead``
+    (the rest of its sync), ``unit.copy`` (the gather and copy of the
+    kept records), and on a pool thread ``unit.queue`` (submission to
+    the start of its replay). On a card, per unit, the device spans
+    ``dev.join``, ``dev.prep``, ``dev.kernel`` and ``dev.compact``, on
+    the host's clock. Without them no event, sync or list is added.
+
     Each downloaded unit is replayed by one native call
     (``finalize.UnitReplay``) on a pool of `replay_threads` threads (all
     cores but one by default), which run in parallel: the call releases
@@ -736,6 +776,7 @@ def all2all_cuda(codes, params, filter_csr=None, progress=None,
     from . import parse_kernel
 
     t_entry = time.perf_counter()
+    sp = Spans() if requested() else None
     verbosity = getattr(params, "verbosity_level", 1)
 
     def _warn(msg, level=1):
@@ -753,6 +794,8 @@ def all2all_cuda(codes, params, filter_csr=None, progress=None,
               device_units=[], setup_s=0.0, dispatch_s=0.0, download_s=0.0,
               download_sync_s=0.0, replay_tail_s=0.0, replay_c_s=0.0, replay_wall_s=0.0,
               replay_pairs=0)
+    if sp is not None:
+        st["spans"] = sp.spans
     if stats is not None:
         stats.update(st)
 
@@ -878,15 +921,16 @@ def all2all_cuda(codes, params, filter_csr=None, progress=None,
             st["native_rows"] = len(rows["native"])
             st["big_rows"] = len(rows["big"])
 
-            def drain(unit, handles):
+            def drain(unit, handles, us):
                 nonlocal done_pairs, seqs_done
                 gi, _, _, (pg, pr, pq, pslot, pb) = unit
                 big = groups[gi][0] == "big"
                 t0 = time.perf_counter()
-                logs = (eng.collect_big(handles) if big
-                        else eng.collect_group(handles))
+                logs = (eng.collect_big(handles, us) if big
+                        else eng.collect_group(handles, us))
                 st["download_s"] += time.perf_counter() - t0
                 st["download_sync_s"] += logs.sync_s
+                us.resolve()
                 nev = logs.nev[pg, pb]
                 fb = np.flatnonzero(nev < 0)
                 for r, q in zip(pr[fb].tolist(), pq[fb].tolist()):
@@ -902,7 +946,8 @@ def all2all_cuda(codes, params, filter_csr=None, progress=None,
                 # thread each
                 futs.append(rep.submit(pool, pr, pq, pslot, nev,
                                        logs.offsets(pg, pb), logs.ev,
-                                       threads=nthreads if big else 1))
+                                       threads=nthreads if big else 1,
+                                       queued=us.queue))
                 done_pairs += len(pr)
                 group_rem[gi] -= 1
                 if group_rem[gi] == 0:
@@ -917,29 +962,36 @@ def all2all_cuda(codes, params, filter_csr=None, progress=None,
             n_ent = len(devices)
             inflight = []
             live = {}    # entry -> (group, its index on the entry's device)
-            st["setup_s"] = time.perf_counter() - t_entry
+            t_loop = time.perf_counter()
+            st["setup_s"] = t_loop - t_entry
+            if sp is not None:
+                sp.host("engine.setup", None, t_entry, t_loop)
+                sp.anchor(devices)
             for k, unit in enumerate(units):
                 gi, lo, qidx, _ = unit
                 kind, r_list, _ = groups[gi]
                 t0 = time.perf_counter()
                 e, dev = k % n_ent, eng.device_for(k)
+                us = OFF if sp is None else UnitSpans(sp, k, dev)
                 if live.get(e, (None,))[0] != gi:
                     live.pop(e, None)            # free the previous index
-                    live[e] = (gi, eng.build_big_index(r_list, dev)
+                    live[e] = (gi, eng.build_big_index(r_list, dev, us)
                                if kind == "big"
-                               else eng.build_group_index(r_list, dev))
+                               else eng.build_group_index(r_list, dev, us))
+                    us.host("unit.index", t0)
                 idx = live[e][1]
                 if kind == "big":
-                    handles = eng.dispatch_big(idx, r_list, lo, dev)
+                    handles = eng.dispatch_big(idx, r_list, lo, dev, us)
                 elif qidx is not None:
                     handles = eng.dispatch_group(
-                        idx, None, dev, qrows=eng.gather_qrows(qidx, dev))
+                        idx, None, dev, qrows=eng.gather_qrows(qidx, dev),
+                        spans=us)
                 else:
-                    handles = eng.dispatch_group(idx, lo, dev)
+                    handles = eng.dispatch_group(idx, lo, dev, spans=us)
                 st["dispatch_s"] += time.perf_counter() - t0
                 st["dispatches"] += 1
                 st["device_units"][e] += 1
-                inflight.append((unit, handles))
+                inflight.append((unit, handles, us))
                 if len(inflight) >= 2 * n_ent:
                     drain(*inflight.pop(0))
             while inflight:
@@ -947,7 +999,11 @@ def all2all_cuda(codes, params, filter_csr=None, progress=None,
             t0 = time.perf_counter()
             for f in futs:
                 f.result()
-            st["replay_tail_s"] = time.perf_counter() - t0
+            t1 = time.perf_counter()
+            st["replay_tail_s"] = t1 - t0
+            if sp is not None:
+                sp.host("engine.loop", None, t_loop, t0)
+                sp.host("engine.replay_tail", None, t0, t1)
         if progress is not None:
             progress(total_pairs, total_pairs, n, n)
     finally:

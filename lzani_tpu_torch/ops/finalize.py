@@ -184,15 +184,20 @@ class UnitReplay:
             self(np.full(k, r, np.int32), qs, slots,
                  np.full(k, -1, np.int32), np.zeros(k, np.int64))
 
-    def submit(self, pool, *unit, then=None, threads=1):
+    def submit(self, pool, *unit, then=None, threads=1, queued=None):
         """Queue ``self(*unit, threads=threads)`` on `pool`;
-        ``then(n_pairs)`` runs after it on the same task. Returns the
+        ``then(n_pairs)`` runs after it on the same task, and
+        ``queued(t_submit, t_start)``, when given, before it with the
+        times of the submission and of the task's start. Returns the
         future."""
+        t_sub = time.perf_counter()
         with self._lock:
             if self.t_first is None:
-                self.t_first = time.perf_counter()
+                self.t_first = t_sub
 
         def task():
+            if queued is not None:
+                queued(t_sub, time.perf_counter())
             k = self(*unit, threads=threads)
             if then is not None:
                 then(k)

@@ -1,0 +1,277 @@
+"""The cuda engine's spans (``ops/spans.py``): recorded only under a
+running torch profiler, one set per work unit
+under the unit's id, inside the engine's loop, adding up to the engine's
+counters, and leaving the outputs as they are; the benchmark's readers
+of them, on a traced run of the harness on the CPU and on made-up
+traces. The device spans' clock is checked on a card (marked ``cuda``)."""
+import json
+import re
+import time
+
+import numpy as np
+import pytest
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from benchmark import harness
+from benchmark.tests import tiny
+from benchmark.trace import Trace
+from lzani_tpu_torch import cli as tcli
+from lzani_tpu_torch import synth
+from lzani_tpu_torch.matcher import Matcher
+from lzani_tpu_torch.ops import cuda_engine as tce
+from lzani_tpu_torch.ops import spans as tsp
+from lzani_tpu_torch.params import Params
+from lzani_tpu_torch.synth import mutate, write_fasta
+
+CPU = torch.device("cpu")
+UNIT_SPANS = ("unit.prep", "unit.launch", "unit.sync_ahead", "unit.copy",
+              "unit.queue")
+SPAN_METRICS = ("engine.index_s", "engine.sync_ahead_s", "replay.queue_s")
+HOST_METRICS = ("engine.setup_s",) + SPAN_METRICS
+DEVICE_METRICS = ("engine.join_device_s", "engine.prep_device_s",
+                  "kernels.parse_device_s", "device.idle_in_loop_s",
+                  "device.idle_outside_loop_s")
+
+
+def _codes(seed, n=7, length=600):
+    rng = np.random.RandomState(seed)
+    base = rng.randint(0, 4, length).astype(np.uint8)
+    return [mutate(rng, base, 0.01 + 0.03 * k, n_ns=k % 2, indels=k % 3)
+            for k in range(n)]
+
+
+def _params(path):
+    """The group path, or (mal > 13) the long-genome path."""
+    p = Params()
+    if path == "big":
+        p.min_anchor_len, p.min_seed_len = 14, 9
+    return p
+
+
+class _NoEvent:
+    def __init__(self, *a, **kw):
+        raise AssertionError("a CUDA event was made with spans off")
+
+
+def test_spans_are_off_by_default(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "Event", _NoEvent)
+    assert not tsp.requested()
+    st = {}
+    tce.all2all_cuda(_codes(1, n=5), Params(), device=CPU, stats=st)
+    assert "spans" not in st and st["dispatches"] > 0
+
+
+def test_the_profilers_flag_turns_spans_on():
+    """``requested`` reads a private flag of torch's profiler; without it
+    no run would record spans."""
+    assert hasattr(torch.autograd.profiler, "_is_profiler_enabled"), \
+        "torch.autograd.profiler._is_profiler_enabled is gone: " \
+        "spans.requested() can no longer see a running profiler"
+    assert not tsp.requested()
+    with profile(activities=[ProfilerActivity.CPU]):
+        assert tsp.requested()
+    assert not tsp.requested()
+
+
+def _traced(codes, p, **kw):
+    st = {}
+    with profile(activities=[ProfilerActivity.CPU]):
+        out = tce.all2all_cuda(codes, p, device=CPU, stats=st, **kw)
+    return out, st
+
+
+@pytest.mark.parametrize("path", ["group", "big"])
+def test_each_unit_has_its_spans_inside_the_loop(path):
+    _, st = _traced(_codes(2), _params(path))
+    sp = st["spans"]
+    assert all(len(s) == 5 and s[2] <= s[3] for s in sp)
+    eng = {s[0]: s for s in sp if s[1] is None}
+    assert sorted(eng) == ["engine.loop", "engine.replay_tail",
+                           "engine.setup"]
+    setup, loop, tail = (eng[k] for k in ("engine.setup", "engine.loop",
+                                          "engine.replay_tail"))
+    assert setup[3] == loop[2] and loop[3] == tail[2]
+    units = [s for s in sp if s[1] is not None]
+    n = st["dispatches"]
+    assert n >= (2 if path == "group" else 1)
+    assert {s[1] for s in units} == set(range(n))
+    for k in range(n):
+        names = sorted(s[0] for s in units if s[1] == k)
+        assert all(names.count(x) == 1 for x in UNIT_SPANS), (k, names)
+        assert not [x for x in names if x.startswith("dev.")]  # no card
+    assert min(s[2] for s in units) >= setup[3]
+    for s in units:
+        if s[0] == "unit.queue":                    # the pool's threads
+            assert loop[2] <= s[2] and s[3] <= tail[3], s
+            assert s[4] != "MainThread"
+        else:
+            assert loop[2] <= s[2] and s[3] <= loop[3], s
+            assert s[4] == "MainThread"
+    assert sum(s[0] == "unit.index" for s in units) >= 1
+
+
+@pytest.mark.parametrize("path", ["group", "big"])
+def test_spans_add_up_to_the_counters(path):
+    _, st = _traced(_codes(3), _params(path))
+    total = {}
+    for name, _, t0, t1, _ in st["spans"]:
+        total[name] = total.get(name, 0.0) + (t1 - t0)
+    # on the CPU there is no stream: the whole sync is sync_ahead
+    assert "unit.sync_own" not in total
+    assert total["unit.sync_ahead"] == pytest.approx(st["download_sync_s"],
+                                                     abs=1e-9)
+    assert (total["unit.index"] + total["unit.prep"] + total["unit.launch"]
+            <= st["dispatch_s"] + 1e-3)
+    assert total["engine.setup"] == pytest.approx(st["setup_s"], abs=1e-9)
+    assert total["engine.replay_tail"] == pytest.approx(
+        st["replay_tail_s"], abs=1e-9)
+
+
+def test_outputs_equal_with_spans_on_and_off(tmp_path):
+    codes = _codes(4)
+    rp = [str(tmp_path / f"r{k}.bin") for k in range(2)]
+    off = tce.all2all_cuda(codes, Params(), device=CPU, region_path=rp[0],
+                           replay_threads=1)
+    on, st = _traced(codes, Params(), region_path=rp[1], replay_threads=1)
+    assert st["spans"] and off.tobytes() == on.tobytes()
+    with open(rp[0], "rb") as a, open(rp[1], "rb") as b:
+        assert a.read() == b.read()
+
+
+def test_matcher_logs_a_span_count(tmp_path, capsys):
+    fa = str(tmp_path / "in.fna")
+    codes = _codes(5, n=4)
+    write_fasta(fa, [f"s{k}" for k in range(len(codes))], codes)
+    argv = ["all2all", "--in-fasta", fa, "--out", str(tmp_path / "o.tsv"),
+            "-t", "2", "-V", "2", "--backend", "cuda"]
+    m = Matcher(tcli.parse_args(argv), device=CPU)
+    with profile(activities=[ProfilerActivity.CPU]):
+        assert m.run_all2all()
+    n = len(m.engine_stats["spans"])
+    line = [ln for ln in capsys.readouterr().err.splitlines()
+            if ln.startswith("lz-ani-torch engine: ")]
+    assert n > 0 and len(line) == 1
+    assert json.loads(line[0].split(": ", 1)[1])["spans"] == n
+    m = Matcher(tcli.parse_args(argv[:-3] + ["0", "--backend", "cuda"]),
+                device=CPU)
+    assert m.run_all2all() and "spans" not in m.engine_stats
+
+
+def test_a_traced_harness_run_reports_the_span_metrics(tmp_path):
+    cell = harness.load_cell(tiny.make_root(tmp_path), "tiny")
+    out = harness.run(cell, 2**31 + 7, 0.01, True, time.perf_counter(),
+                      device="cpu")
+    assert out["correct"], out["checks"]
+    got = out["metrics"]
+    for m in HOST_METRICS:
+        assert got[m]["unit"] == "s" and got[m]["value"] >= 0, m
+    assert not set(DEVICE_METRICS) & set(got)
+    assert got["engine.sync_ahead_s"]["value"] == pytest.approx(
+        got["engine.download_sync_s"]["value"], rel=1e-6)
+
+
+class _Job:
+    def __init__(self, stats, start=0.0, end=0.0, times=()):
+        self.stats, self.start, self.end = stats, start, end
+        self.times, self.error = list(times), None
+
+    def phase_spans(self):
+        return harness.Job.phase_spans(self)
+
+
+class _Run:
+    def __init__(self, jobs, trace=None):
+        self.jobs, self.trace = jobs, trace
+
+    ok_jobs = property(lambda self: self.jobs)
+
+
+def _reader(name):
+    return harness.load_reader(harness.ROOT, name)
+
+
+def test_the_readers_find_nothing_without_spans():
+    """A program without spans (the parent of this change) reads None in
+    every new metric that reads spans, traced or not; engine.setup_s
+    reads the engine's counter ``setup_s``, which that program has."""
+    tr = Trace([0.5], [0.6], ["k"], 0.0, 2.0)
+    for trace in (None, tr):
+        run = _Run([_Job({"dispatch_s": 1.0, "setup_s": 0.25}),
+                    _Job({"dispatch_s": 1.0, "setup_s": 0.75})], trace)
+        for m in SPAN_METRICS + DEVICE_METRICS:
+            assert _reader(m)(run) is None, m
+        assert _reader("engine.setup_s")(run) == pytest.approx(0.5)
+    assert _reader("engine.setup_s")(_Run([_Job({})])) is None
+
+
+def test_the_device_readers_split_the_idle_time(capsys):
+    """Two jobs on a made-up trace: each loop [1, 3) is busy 0.5 s, each
+    set-up [0.8, 1) and replay tail [3, 3.2) idle, the rest of the job
+    (load, store and the 0.1 s after its last mark) idle, and the window
+    0-8 s."""
+    def job(t, k):
+        sp = [("engine.setup", None, t + 0.8, t + 1.0, "MainThread"),
+              ("engine.loop", None, t + 1.0, t + 3.0, "MainThread"),
+              ("engine.replay_tail", None, t + 3.0, t + 3.2, "MainThread"),
+              ("dev.kernel", 0, t + 1.2, t + 1.5, "cuda:0"),
+              ("dev.kernel", 1, t + 2.0, t + 2.2, "cuda:0"),
+              ("unit.queue", 0, t + 1.6, t + 1.7, "pool"),
+              ("unit.queue", 1, t + 2.3, t + 2.6, "pool")]
+        marks = [(t, "Start"), (t + 0.5, "Loading sequences"),
+                 (t + 3.5, "LZ matching"), (t + 3.9, "Storing results")]
+        return _Job({"spans": sp}, start=t, end=t + 4.0, times=marks)
+
+    tr = Trace([1.2, 2.0, 5.2, 6.0], [1.5, 2.2, 5.5, 6.2], ["k"] * 4,
+               0.0, 8.0)
+    run = _Run([job(0.0, 0), job(4.0, 1)], tr)
+    assert _reader("device.idle_in_loop_s")(run) == pytest.approx(1.5)
+    # window idle 7 s, 3 s of it in the loops: 2 s a job outside
+    assert _reader("device.idle_outside_loop_s")(run) == pytest.approx(2.0)
+    err = capsys.readouterr().err
+    assert "unit.index 0, " in err and "other 1.5;" in err
+    assert "dev.kernel 0.5 / 0.5" in err
+    assert "engine.setup 0.2," in err and "engine.replay_tail 0.2," in err
+    assert "after_last_mark 0.1," in err
+    busy_out = re.search(r"busy outside the engine's spans (\S+) s", err)
+    assert float(busy_out.group(1)) == pytest.approx(0.0, abs=1e-9)
+    assert _reader("kernels.parse_device_s")(run) == pytest.approx(0.5)
+    assert _reader("replay.queue_s")(run) == pytest.approx(0.2)
+
+
+# --- on a card -------------------------------------------------------------
+
+@pytest.mark.cuda
+def test_device_spans_share_the_hosts_clock(monkeypatch):
+    """Each unit's kernel (``dev.kernel``) starts after its launch began
+    on the host and ends before the host's wait for it ended, to 0.2 ms;
+    with spans off no CUDA event is made."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda", 0)
+    _, codes = synth.viral_set(seed=5, n=24)
+    p = Params()
+    st = {}
+    with profile():
+        ref = tce.all2all_cuda(codes, p, device=dev, stats=st)
+    by = {}
+    for s in st["spans"]:
+        by.setdefault(s[1], {})[s[0]] = s
+    n = st["dispatches"]
+    assert n >= 2
+    for k in range(n):
+        u = by[k]
+        for name in ("dev.prep", "dev.kernel", "dev.compact",
+                     "unit.sync_own") + UNIT_SPANS:
+            assert name in u, (k, name)
+        assert u["dev.kernel"][4] == str(dev)
+        assert u["dev.kernel"][2] >= u["unit.launch"][2] - 2e-4, k
+        assert u["dev.kernel"][3] <= u["unit.sync_own"][3] + 2e-4, k
+    sync = sum(s[3] - s[2] for s in st["spans"]
+               if s[0] in ("unit.sync_own", "unit.sync_ahead"))
+    assert sync == pytest.approx(st["download_sync_s"], abs=1e-9)
+    assert any(s[0] == "dev.join" for s in st["spans"])
+    monkeypatch.setattr(torch.cuda, "Event", _NoEvent)
+    st2 = {}
+    out = tce.all2all_cuda(codes, p, device=dev, stats=st2)
+    assert "spans" not in st2 and np.array_equal(out, ref)
