@@ -14,6 +14,9 @@ A numpy copy of ``lzani_tpu/ops/anchor_tables.py``: that package's
    a finite grid. We precompute WIN[al_c, sl_c, lr] with al_c = min(al, 27),
    sl_c = min(sl, 27) by replicating fpow bit-for-bit (same multiplication
    order, IEEE f64) vectorized in numpy. No monotonicity assumptions.
+   Only pa depends on the reference: ``win_words`` (the port's own, not a
+   copy) builds a group's packed words from pc computed once a run and pa
+   for the group's lengths; ``build_win_table`` is its test oracle.
 
 2. Anchor join tables — ht_long semantics (parser.cpp:146-189, 507-531)
    reduce to "ref positions sharing the query's 11-mer; longest equal_len
@@ -24,6 +27,8 @@ A numpy copy of ``lzani_tpu/ops/anchor_tables.py``: that package's
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 
@@ -75,6 +80,40 @@ def build_win_table(nr: int, mal: int, msl: int, mrd: int, mqd: int
     pc = fpow_vec(pc_base, pc_e)
 
     return (pa > pc).astype(np.int32)
+
+
+@functools.lru_cache(maxsize=8)
+def seed_half(msl: int, mrd: int, mqd: int) -> np.ndarray:
+    """pc[sl_c - msl, lr] of ``build_win_table``: (SAT - msl + 1, mqd + 1)
+    f64, fixed for a run; computed once per (msl, mrd, mqd) and shared
+    read-only."""
+    S, L = np.meshgrid(np.arange(msl, SAT + 1), np.arange(0, mqd + 1),
+                       indexing="ij")
+    pc = fpow_vec(1.0 - prob_len_vec(S),
+                  (L + mrd + 1 - S).astype(np.int64).astype(np.uint32))
+    pc.flags.writeable = False
+    return pc
+
+
+def win_words(nrs, mal: int, msl: int, mrd: int, mqd: int,
+              pad_words: int = 128) -> np.ndarray:
+    """(G, W) int32 WIN bit-words of the composite lengths `nrs`: row g
+    equals ``pack_bits_i32(build_win_table(nrs[g], ...).reshape(-1),
+    pad_words)`` bit for bit (little-endian within a word, W padded to a
+    multiple of `pad_words`). The table factors as pa(al, nr) > pc(sl, lr):
+    the seed half comes from ``seed_half``, the anchor half is computed
+    for the G lengths at once, with the same elementwise ``fpow_vec``."""
+    nr = np.asarray(nrs, np.int64).reshape(-1, 1)
+    als = np.arange(mal, SAT + 1)          # empty where mal > SAT
+    A = np.broadcast_to(als, (len(nr), len(als)))
+    pa = fpow_vec(1.0 - prob_len_vec(A), (2 * (nr + 1 - A)).astype(np.uint32))
+    bits = (pa[:, :, None, None] > seed_half(msl, mrd, mqd)).reshape(
+        len(nr), -1)
+    n = bits.shape[1]
+    W = -(-max(-(-n // 32), 1) // pad_words) * pad_words
+    packed = np.zeros((len(nr), W * 4), np.uint8)
+    packed[:, :-(-n // 8)] = np.packbits(bits, axis=1, bitorder="little")
+    return packed.view("<i4").astype(np.int32)
 
 
 def win_lookup(win: np.ndarray, al: int, sl: int, lr: int,

@@ -49,7 +49,7 @@ import numpy as np
 import torch
 
 from ..core import native_engine
-from .anchor_tables import SAT, build_win_table
+from .anchor_tables import SAT, win_words
 from .big import big_query_prep, big_ref_join
 from .finalize import NO_PAIRS, UnitReplay, row_wanted, unit_pairs
 from .parse import ParseCfg
@@ -224,7 +224,8 @@ class GroupIndex:
     buckets (counterpart of PallasGroupIndex): packed composite buffers,
     WIN bit tables, composite lengths, plus the unpacked buffers and the
     anchor join, built once on the device. `spans` (``spans.UnitSpans``)
-    records the join's device time as ``dev.join``."""
+    records the join's device time as ``dev.join``; ``win_s`` holds the
+    host seconds the WIN words took (``anchor_tables.win_words``)."""
 
     def __init__(self, codes_list, params, device, LrP: int | None = None,
                  KaP: int | None = None, spans=OFF):
@@ -239,10 +240,9 @@ class GroupIndex:
         bufs = np.full((G, self.LrP), SYM_N_REF, np.uint8)
         for g, rb in enumerate(rbs):
             bufs[g, :len(rb)] = rb
-        wfs = np.concatenate(
-            [pack_bits_i32(build_win_table(int(n), cfg.mal, cfg.msl, cfg.mrd,
-                                           cfg.mqd).reshape(-1), 128)
-             for n in nrs], axis=0)                          # (G, WinP)
+        t0 = time.perf_counter()
+        wfs = win_words(nrs, cfg.mal, cfg.msl, cfg.mrd, cfg.mqd)  # (G, WinP)
+        self.win_s = time.perf_counter() - t0
         self.WinP = wfs.shape[1]
         dev = torch.device(device)
         self.win = torch.from_numpy(wfs).to(dev)
@@ -742,7 +742,8 @@ def all2all_cuda(codes, params, filter_csr=None, progress=None,
     device_units (the units each device entry ran), and the host clocks
     of the run: setup_s (entry to the first dispatch), dispatch_s and
     download_s (the main thread's seconds in index builds and
-    dispatches, and in downloads, the sync included), download_sync_s
+    dispatches, and in downloads, the sync included), win_s (of
+    dispatch_s, the index builds' WIN words), download_sync_s
     (of download_s, the sync: the wait for the device, which on the one
     stream also covers the next unit's prep and kernel), replay_tail_s
     (its wait for the replay pool after the last download), replay_c_s
@@ -791,9 +792,9 @@ def all2all_cuda(codes, params, filter_csr=None, progress=None,
               big_cap_fallbacks=0, big_fallback_pairs=[], native_rows=0,
               native_row_pairs=0, big_rows=0, G_big=0, B_big=0,
               replay_mismatches=0, dispatches=0, launches=0, big_launches=0,
-              device_units=[], setup_s=0.0, dispatch_s=0.0, download_s=0.0,
-              download_sync_s=0.0, replay_tail_s=0.0, replay_c_s=0.0, replay_wall_s=0.0,
-              replay_pairs=0)
+              device_units=[], setup_s=0.0, dispatch_s=0.0, win_s=0.0,
+              download_s=0.0, download_sync_s=0.0, replay_tail_s=0.0,
+              replay_c_s=0.0, replay_wall_s=0.0, replay_pairs=0)
     if sp is not None:
         st["spans"] = sp.spans
     if stats is not None:
@@ -979,6 +980,7 @@ def all2all_cuda(codes, params, filter_csr=None, progress=None,
                                if kind == "big"
                                else eng.build_group_index(r_list, dev, us))
                     us.host("unit.index", t0)
+                    st["win_s"] += live[e][1].win_s
                 idx = live[e][1]
                 if kind == "big":
                     handles = eng.dispatch_big(idx, r_list, lo, dev, us)

@@ -33,6 +33,30 @@ def test_win_table(nr, mal, msl, mrd, mqd):
                           jpe.pack_bits_i32(bits, 128))
 
 
+DUMMY_NR = 2 * 16 + 3 * 40     # the 16-symbol dummy slot's composite at mrd 40
+
+
+@pytest.mark.parametrize("nrs,mal,msl,mrd,mqd", [
+    ((1200,), 11, 7, 40, 40), ((131_000,), 11, 7, 40, 40),
+    ((700_000,), 11, 7, 40, 40), ((5000,), 13, 9, 8, 63),
+    ((300,), 5, 4, 63, 8), ((1200, 40_000), 27, 27, 40, 0),
+    ((1200, 40_000), 30, 7, 40, 40),
+    ((DUMMY_NR, 80_000, DUMMY_NR, DUMMY_NR), 11, 7, 40, 40),
+    ((20, 116_000, 47_000, 700_000, 5000), 11, 7, 40, 40),
+    ((2**25 - 1000, 2**25 + 64), 11, 7, 40, 40)])
+def test_win_words_equal_the_per_reference_tables(nrs, mal, msl, mrd, mqd):
+    """The factored words equal each reference's packed table, the port's
+    and the JAX package's, row for row."""
+    assert tprep.ref_buffer_np(np.zeros(16, np.uint8), 40).size == DUMMY_NR
+    w = tat.win_words(np.array(nrs, np.int32), mal, msl, mrd, mqd)
+    assert w.dtype == np.int32 and w.shape[0] == len(nrs)
+    for g, nr in enumerate(nrs):
+        bits = tat.build_win_table(nr, mal, msl, mrd, mqd).reshape(-1)
+        assert np.array_equal(w[g:g + 1], tce.pack_bits_i32(bits, 128))
+        jbits = jat.build_win_table(nr, mal, msl, mrd, mqd).reshape(-1)
+        assert np.array_equal(w[g:g + 1], jpe.pack_bits_i32(jbits, 128))
+
+
 @pytest.mark.parametrize("k", [4, 7, 11])
 def test_kmer_stream_and_anchor_join(k):
     buf = tprep.ref_buffer_np(_codes(k, 3000), 40)
