@@ -1,0 +1,46 @@
+"""kernels.big_roofline: the least time the card could take for the work
+of the long-genome pairs it parsed, over the long-genome kernel's own
+device time during the jobs' matching phases, in %.
+
+The work is counted as ``kernels.roofline`` counts it (``benchmark/
+work.py``): one symbol compare per query position of every pair, and
+every genome's symbols read once at 3 bits plus a 12-byte triple a
+pair, scaled to the engine's ``big_pairs`` (the pairs that the kernel
+parsed, capacity fallbacks left out). The time is the union of the
+trace's intervals whose name holds ``parse_big_kernel``."""
+
+import sys
+
+from benchmark import work
+from benchmark.trace import Trace
+
+KERNEL = "parse_big_kernel"
+
+
+def read(run):
+    tr = run.trace
+    peak = work.peaks(run.device_kind)
+    if tr is None or peak is None:
+        return None
+    sel = [i for i, n in enumerate(tr.names) if KERNEL in n]
+    if not sel:
+        return None
+    kern = Trace(tr.start[sel], tr.end[sel], [tr.names[i] for i in sel],
+                 tr.t0, tr.t1)
+    compares = nbytes = busy = 0.0
+    for job in run.ok_jobs:
+        big = job.stats.get("big_pairs", 0)
+        if not big:
+            continue
+        c, b, pairs = work.all_pairs_work(run.lengths[job.coll])
+        compares += c * big / pairs
+        nbytes += b - 12 * (pairs - big)
+        busy += sum(kern.busy(a, e) for p, a, e in job.phase_spans()
+                    if p == "match")
+    if not busy or not compares:
+        return None
+    least, bound = work.least_seconds(compares, nbytes, peak)
+    print(f"bench: kernels.big_roofline: {compares:.6g} compares, "
+          f"{nbytes:.6g} bytes, least {least:.6g} s ({bound} bound), "
+          f"{KERNEL} {busy:.6g} s", file=sys.stderr)
+    return 100.0 * least / busy

@@ -10,11 +10,19 @@ key's order is the (hi, lo) order of the JAX join, and equal keys mean
 equal substrings (no hash collisions). The join is a stable sort of the
 keys, so a key's positions stay ascending (the smallest-position
 tie-break of the anchor search); windows with a non-ACGT code sort last.
+
+Both preps take a unit's spans (``spans.UnitSpans``; ``OFF`` records
+nothing) and record their stages' device time: ``dev.kmers`` (the k-mer
+key streams), ``dev.sort`` (a reference's stable sort and position
+list), ``dev.search`` (a reference's two searches and the start and
+count planes) and ``dev.next_hit``.
 """
 
 from __future__ import annotations
 
 import torch
+
+from .spans import OFF
 
 #: key of a reference window that is not a k-mer (above every real key)
 KEY_INVALID = 1 << 60
@@ -51,7 +59,7 @@ def kmer_keys(buf: torch.Tensor, k: int):
     return (hi.to(torch.int64) << 30) | lo.to(torch.int64), ok
 
 
-def big_ref_join(refbuf: torch.Tensor, mal: int, KaP: int):
+def big_ref_join(refbuf: torch.Tensor, mal: int, KaP: int, spans=OFF):
     """Sorted join of a (G, LrP) int32 stack of composite reference
     buffers: ``keys`` (G, LrP) int64 sorted ascending (KEY_INVALID last)
     and ``poslist`` (G, KaP) int32, the positions in the same order
@@ -61,15 +69,17 @@ def big_ref_join(refbuf: torch.Tensor, mal: int, KaP: int):
     poslist = torch.zeros((G, KaP), dtype=torch.int32, device=refbuf.device)
     n = min(LrP, KaP)
     for g in range(G):
-        key, ok = kmer_keys(refbuf[g:g + 1], mal)
-        key = torch.where(ok, key, KEY_INVALID)[0]
-        keys[g], order = torch.sort(key, stable=True)
-        poslist[g, :n] = order[:n].to(torch.int32)
+        with spans.stage("dev.kmers"):
+            key, ok = kmer_keys(refbuf[g:g + 1], mal)
+            key = torch.where(ok, key, KEY_INVALID)[0]
+        with spans.stage("dev.sort"):
+            keys[g], order = torch.sort(key, stable=True)
+            poslist[g, :n] = order[:n].to(torch.int32)
     return keys, poslist
 
 
 def big_query_prep(q: torch.Tensor, dsz: torch.Tensor, keys: torch.Tensor,
-                   mal: int, msl: int):
+                   mal: int, msl: int, spans=OFF):
     """One long-genome dispatch's query-side prep against G references.
 
     q (B, LqP) int32 query codes, dsz (G, B) int32 per-pair query lengths
@@ -84,21 +94,25 @@ def big_query_prep(q: torch.Tensor, dsz: torch.Tensor, keys: torch.Tensor,
     G = keys.shape[0]
     B, LqP = q.shape
     dev = q.device
-    qkey, qok = kmer_keys(q, mal)
+    with spans.stage("dev.kmers"):
+        qkey, qok = kmer_keys(q, mal)
     idx = torch.arange(LqP, device=dev, dtype=torch.int32)
     cand = torch.empty((G, B, 2, LqP), dtype=torch.int32, device=dev)
     next_hit = torch.empty((G, B, LqP), dtype=torch.int32, device=dev)
     for g in range(G):
-        s_l = torch.searchsorted(keys[g], qkey, out_int32=True)
-        s_r = torch.searchsorted(keys[g], qkey, right=True, out_int32=True)
-        cnt = torch.where(qok, s_r - s_l, 0)
         ds = dsz[g].to(torch.int32)[:, None]
-        hit = (cnt > 0) & (idx[None] < ds - msl)
-        nh_src = torch.where(hit, idx[None], ds)
-        nh = torch.flip(torch.cummin(torch.flip(nh_src, [1]), dim=1).values,
-                        [1])
-        mask = idx[None] < ds
-        cand[g, :, 0] = torch.where(mask, s_l, 0)
-        cand[g, :, 1] = torch.where(mask, cnt, 0)
-        next_hit[g] = torch.where(mask, nh, ds)
+        with spans.stage("dev.search"):
+            s_l = torch.searchsorted(keys[g], qkey, out_int32=True)
+            s_r = torch.searchsorted(keys[g], qkey, right=True,
+                                     out_int32=True)
+            cnt = torch.where(qok, s_r - s_l, 0)
+            mask = idx[None] < ds
+            cand[g, :, 0] = torch.where(mask, s_l, 0)
+            cand[g, :, 1] = torch.where(mask, cnt, 0)
+        with spans.stage("dev.next_hit"):
+            hit = (cnt > 0) & (idx[None] < ds - msl)
+            nh_src = torch.where(hit, idx[None], ds)
+            nh = torch.flip(torch.cummin(torch.flip(nh_src, [1]),
+                                         dim=1).values, [1])
+            next_hit[g] = torch.where(mask, nh, ds)
     return cand, next_hit

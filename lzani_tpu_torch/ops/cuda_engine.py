@@ -249,7 +249,7 @@ class GroupIndex:
         self.nrs = torch.from_numpy(nrs).to(dev)
         refbuf = self._upload(bufs, dev)
         with spans.stage("dev.join"):
-            self._join(refbuf, cfg)
+            self._join(refbuf, cfg, spans)
 
     def _upload(self, bufs, dev):
         """Upload the (G, LrP) uint8 buffers in the packed transfer form
@@ -263,7 +263,7 @@ class GroupIndex:
         self.refbuf = refbuf.to(torch.uint8).contiguous()
         return refbuf
 
-    def _join(self, refbuf, cfg):
+    def _join(self, refbuf, cfg, spans):
         self.ptab, self.poslist = group_join(refbuf, cfg.mal, self.KaP)
 
 
@@ -281,8 +281,10 @@ class BigIndex(GroupIndex):
         self.refbuf = torch.from_numpy(bufs).to(dev)
         return self.refbuf
 
-    def _join(self, refbuf, cfg):
-        self.keys, self.poslist = big_ref_join(refbuf, cfg.mal, self.KaP)
+    def _join(self, refbuf, cfg, spans):
+        """The sorted join; `spans` records its stages (``big_ref_join``)."""
+        self.keys, self.poslist = big_ref_join(refbuf, cfg.mal, self.KaP,
+                                               spans)
 
 
 class CudaRefIndex:
@@ -602,12 +604,13 @@ class CudaAll2All:
                         device or self.devices[0], LrP=self.LrP_big,
                         KaP=self.KaP_big, spans=spans)
 
-    def big_args(self, bidx: BigIndex, r_list, lo, device=None):
+    def big_args(self, bidx: BigIndex, r_list, lo, device=None, spans=OFF):
         """Prep of a long-genome dispatch: the arguments of
         ``parse_events_big`` for the references `r_list` of `bidx` x the
         B_big queries [lo, lo + B_big). The self pair gets dsz = msl, so a
         megabase self-parse never runs (pallas_engine.py:1888-1891), as do
-        padding rows."""
+        padding rows. `spans` records the prep's stages
+        (``big_query_prep``)."""
         dev = device or self.devices[0]
         cfg, B = self.cfg, self.B_big
         q = dev_unpack3(self.Q[dev][lo:lo + B], self.LqP)
@@ -615,7 +618,8 @@ class CudaAll2All:
         refs = torch.as_tensor(list(r_list), device=dev)
         dsz = torch.where(rows[None] == refs[:, None], cfg.msl,
                           self.DSZ[dev][lo:lo + B][None]).to(torch.int32)
-        cand, next_hit = big_query_prep(q, dsz, bidx.keys, cfg.mal, cfg.msl)
+        cand, next_hit = big_query_prep(q, dsz, bidx.keys, cfg.mal, cfg.msl,
+                                        spans)
         return (bidx.refbuf, q.to(torch.uint8).contiguous(), bidx.poslist,
                 cand, next_hit, bidx.win, dsz.contiguous(), bidx.nrs, cfg,
                 self.EV_CAP_BIG)
@@ -625,7 +629,7 @@ class CudaAll2All:
         """Prep + big kernel (``big_args``). Returns device tensors (ev,
         nev); nothing is synchronised. `spans` as ``dispatch_group``."""
         with spans.span("unit.prep"), spans.stage("dev.prep"):
-            args = self.big_args(bidx, r_list, lo, device)
+            args = self.big_args(bidx, r_list, lo, device, spans)
         with spans.span("unit.launch"), spans.stage("dev.kernel"):
             return parse_events_big(*args)
 
@@ -760,9 +764,13 @@ def all2all_cuda(codes, params, filter_csr=None, progress=None,
     (on a card: the wait for the unit's own kernel), ``unit.sync_ahead``
     (the rest of its sync), ``unit.copy`` (the gather and copy of the
     kept records), and on a pool thread ``unit.queue`` (submission to
-    the start of its replay). On a card, per unit, the device spans
-    ``dev.join``, ``dev.prep``, ``dev.kernel`` and ``dev.compact``, on
-    the host's clock. Without them no event, sync or list is added.
+    the start of its replay) and ``unit.replay`` (its native replay
+    call). On a card, per unit, the device spans ``dev.join``,
+    ``dev.prep``, ``dev.kernel`` and ``dev.compact``, on the host's
+    clock, and on the long-genome path their stages inside ``dev.join``
+    and ``dev.prep``: ``dev.kmers``, ``dev.sort``, ``dev.search`` and
+    ``dev.next_hit`` (``ops/big.py``). Without them no event, sync or
+    list is added.
 
     Each downloaded unit is replayed by one native call
     (``finalize.UnitReplay``) on a pool of `replay_threads` threads (all
@@ -948,7 +956,8 @@ def all2all_cuda(codes, params, filter_csr=None, progress=None,
                 futs.append(rep.submit(pool, pr, pq, pslot, nev,
                                        logs.offsets(pg, pb), logs.ev,
                                        threads=nthreads if big else 1,
-                                       queued=us.queue))
+                                       queued=us.queue,
+                                       replayed=us.replay))
                 done_pairs += len(pr)
                 group_rem[gi] -= 1
                 if group_rem[gi] == 0:

@@ -184,21 +184,26 @@ class UnitReplay:
             self(np.full(k, r, np.int32), qs, slots,
                  np.full(k, -1, np.int32), np.zeros(k, np.int64))
 
-    def submit(self, pool, *unit, then=None, threads=1, queued=None):
+    def submit(self, pool, *unit, then=None, threads=1, queued=None,
+               replayed=None):
         """Queue ``self(*unit, threads=threads)`` on `pool`;
-        ``then(n_pairs)`` runs after it on the same task, and
-        ``queued(t_submit, t_start)``, when given, before it with the
-        times of the submission and of the task's start. Returns the
-        future."""
+        ``then(n_pairs)`` runs after it on the same task. When given,
+        ``queued(t_submit, t_start)`` runs before it with the times of the
+        submission and of the task's start, and ``replayed(t_start,
+        t_end)`` after it with the start and end of the replay call.
+        Returns the future."""
         t_sub = time.perf_counter()
         with self._lock:
             if self.t_first is None:
                 self.t_first = t_sub
 
         def task():
+            t0 = time.perf_counter()
             if queued is not None:
-                queued(t_sub, time.perf_counter())
+                queued(t_sub, t0)
             k = self(*unit, threads=threads)
+            if replayed is not None:
+                replayed(t0, time.perf_counter())
             if then is not None:
                 then(k)
 

@@ -147,11 +147,16 @@ class UnitSpans:
         to the start of its task on a pool thread (``unit.queue``)."""
         self.sp.host("unit.queue", self.k, t_submit, t0)
 
+    def replay(self, t0: float, t1: float) -> None:
+        """The unit's native replay call on its pool thread, from the end
+        of its ``unit.queue`` (``unit.replay``)."""
+        self.sp.host("unit.replay", self.k, t0, t1)
+
 
 class _Off:
     """A unit whose spans are not recorded."""
 
-    queue = None
+    queue = replay = None
 
     def host(self, name, t0, t1=None):
         pass

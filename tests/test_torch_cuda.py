@@ -684,6 +684,65 @@ def test_all2all_cuda_two_entries_on_one_card(dev):
     assert st["replay_mismatches"] == 0
 
 
+#: the long-genome path's device stages and the span each one nests in
+BIG_STAGES = {"dev.kmers": ("dev.join", "dev.prep"), "dev.sort": ("dev.join",),
+              "dev.search": ("dev.prep",), "dev.next_hit": ("dev.prep",)}
+
+
+def test_long_genome_spans_record_the_device_stages(dev, monkeypatch):
+    """Under a profiler a long-genome run records its four device stages,
+    each inside its unit's ``dev.join`` or ``dev.prep`` and together no
+    longer than they; a group-path run records none of them. With spans
+    off no CUDA event is made and the triples are the same."""
+    from torch.profiler import profile
+
+    from lzani_tpu_torch.params import Params as TParams
+
+    rng = np.random.RandomState(31)
+    codes = []
+    for L in (400_000, 300_000):
+        g = synth.bacterial_genome(rng, L)
+        codes += [g, synth.bacterial_relative(rng, g, 0.04)]
+    p = synth.bacterial_params()
+    st = {}
+    with profile():
+        ref = tce.all2all_cuda(codes, p, device=dev, stats=st)
+    assert st["big_rows"] == 4 and st["big_pairs"] == 12
+    by = {}
+    for s in st["spans"]:
+        by.setdefault(s[0], []).append(s)
+    assert all(by.get(n) for n in BIG_STAGES), sorted(by)
+    for name, outer in BIG_STAGES.items():
+        for s in by[name]:
+            assert s[4] == str(dev)
+            assert any(o[1] == s[1] and o[2] <= s[2] + 1e-6
+                       and s[3] <= o[3] + 1e-6
+                       for n in outer for o in by[n]), (name, s)
+
+    def total(names):
+        return sum(s[3] - s[2] for n in names for s in by[n])
+    assert total(BIG_STAGES) <= total(("dev.join", "dev.prep")) + 1e-6
+    assert len(by["unit.replay"]) == st["dispatches"]
+
+    class _NoEvent:
+        def __init__(self, *a, **kw):
+            raise AssertionError("a CUDA event was made with spans off")
+
+    with monkeypatch.context() as mp:
+        mp.setattr(torch.cuda, "Event", _NoEvent)
+        st_off = {}
+        out = tce.all2all_cuda(codes, p, device=dev, stats=st_off)
+    assert "spans" not in st_off and np.array_equal(out, ref)
+
+    _, viral = synth.viral_set(seed=5, n=24)
+    st = {}
+    with profile():
+        tce.all2all_cuda(viral, TParams(), device=dev, stats=st)
+    names = {s[0] for s in st["spans"]}
+    assert "dev.join" in names and "dev.prep" in names
+    assert not names & set(BIG_STAGES)
+
+
 # ---------------------------------------------------------------------------
 # the automaton backend: the fold kernel
 # ---------------------------------------------------------------------------

@@ -13,7 +13,7 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from benchmark import harness
+from benchmark import harness, work
 from benchmark.tests import tiny
 from benchmark.trace import Trace
 from lzani_tpu_torch import cli as tcli
@@ -26,7 +26,9 @@ from lzani_tpu_torch.synth import mutate, write_fasta
 
 CPU = torch.device("cpu")
 UNIT_SPANS = ("unit.prep", "unit.launch", "unit.sync_ahead", "unit.copy",
-              "unit.queue")
+              "unit.queue", "unit.replay")
+#: spans recorded on the replay pool's threads
+POOL_SPANS = ("unit.queue", "unit.replay")
 SPAN_METRICS = ("engine.index_s", "engine.sync_ahead_s", "replay.queue_s")
 HOST_METRICS = ("engine.setup_s",) + SPAN_METRICS
 DEVICE_METRICS = ("engine.join_device_s", "engine.prep_device_s",
@@ -99,10 +101,13 @@ def test_each_unit_has_its_spans_inside_the_loop(path):
     for k in range(n):
         names = sorted(s[0] for s in units if s[1] == k)
         assert all(names.count(x) == 1 for x in UNIT_SPANS), (k, names)
-        assert not [x for x in names if x.startswith("dev.")]  # no card
+        queue, replay = (next(s for s in units if s[1] == k and s[0] == x)
+                         for x in POOL_SPANS)
+        assert replay[2] >= queue[3] and replay[4] == queue[4], k
+    assert not [s for s in sp if s[0].startswith("dev.")]  # no card
     assert min(s[2] for s in units) >= setup[3]
     for s in units:
-        if s[0] == "unit.queue":                    # the pool's threads
+        if s[0] in POOL_SPANS:                      # the pool's threads
             assert loop[2] <= s[2] and s[3] <= tail[3], s
             assert s[4] != "MainThread"
         else:
@@ -126,6 +131,9 @@ def test_spans_add_up_to_the_counters(path):
     assert total["engine.setup"] == pytest.approx(st["setup_s"], abs=1e-9)
     assert total["engine.replay_tail"] == pytest.approx(
         st["replay_tail_s"], abs=1e-9)
+    # each unit's replay span holds its native call
+    assert st["native_rows"] == 0
+    assert total["unit.replay"] >= st["replay_c_s"] > 0
 
 
 def test_outputs_equal_with_spans_on_and_off(tmp_path):
@@ -237,6 +245,102 @@ def test_the_device_readers_split_the_idle_time(capsys):
     assert float(busy_out.group(1)) == pytest.approx(0.0, abs=1e-9)
     assert _reader("kernels.parse_device_s")(run) == pytest.approx(0.5)
     assert _reader("replay.queue_s")(run) == pytest.approx(0.2)
+
+
+#: the long-genome path's readers of spans, and the span each one sums
+BIG_SPAN_METRICS = {"big.kmers_device_s": "dev.kmers",
+                    "big.sort_device_s": "dev.sort",
+                    "big.search_device_s": "dev.search",
+                    "big.next_hit_device_s": "dev.next_hit",
+                    "replay.big_wall_s": "unit.replay"}
+H100 = "NVIDIA H100 80GB HBM3"
+
+
+class _BigRun(_Run):
+    def __init__(self, jobs, trace=None, lengths=(), kind=H100):
+        super().__init__(jobs, trace)
+        self.lengths, self.device_kind = [list(x) for x in lengths], kind
+
+
+def _big_job(t, coll, big_pairs, spans=None):
+    """A job over [t, t + 4) whose matching phase is [t + 0.5, t + 3.5)."""
+    marks = [(t, "Start"), (t + 0.5, "Loading sequences"),
+             (t + 3.5, "LZ matching"), (t + 3.9, "Storing results")]
+    st = {"big_pairs": big_pairs}
+    if spans is not None:
+        st["spans"] = spans
+    job = _Job(st, start=t, end=t + 4.0, times=marks)
+    job.coll = coll
+    return job
+
+
+def test_the_long_genome_readers_find_nothing_without_their_spans():
+    """A program without the long-genome path's spans (the parent of this
+    change), or a run of the group path, reads None in each of them; the
+    roofline of the long-genome kernel reads None without a trace, without
+    a peak for the device or without an interval of that kernel."""
+    group = [("dev.join", 0, 0.1, 0.2, "cuda:0"),
+             ("dev.prep", 0, 0.3, 0.4, "cuda:0"),
+             ("unit.queue", 0, 0.5, 0.6, "pool")]
+    tr = Trace([1.0], [1.5], ["parse_group_kernel"], 0.0, 8.0)
+    for spans in (None, group):
+        run = _BigRun([_big_job(0.0, 0, 0, spans)], tr, [[1000, 2000]])
+        for m in BIG_SPAN_METRICS:
+            assert _reader(m)(run) is None, m
+    read = _reader("kernels.big_roofline")
+    lengths = [[3_000_000, 5_000_000]]
+    for trace, kind, pairs in ((None, H100, 2), (tr, H100, 2),
+                               (Trace([1.0], [1.5], ["parse_big_kernel"],
+                                      0.0, 8.0), "cpu", 2),
+                               (Trace([1.0], [1.5], ["parse_big_kernel"],
+                                      0.0, 8.0), H100, 0)):
+        run = _BigRun([_big_job(0.0, 0, pairs)], trace, lengths, kind)
+        assert read(run) is None
+
+
+def test_the_long_genome_readers_sum_their_spans(capsys):
+    """Two jobs: each reader sums its spans a job and takes the mean over
+    the jobs; ``kernels.big_roofline`` counts ``all_pairs_work`` scaled by
+    ``big_pairs`` over the time of the intervals named
+    ``parse_big_kernel`` inside the matching phases, and nothing else."""
+    def spans(t, scale):
+        return [(name, k, t + 0.6 + 0.1 * k, t + 0.6 + 0.1 * k
+                 + scale * 0.01 * (i + 1) * (k + 1), dev)
+                for i, (name, dev) in enumerate(
+                    [("dev.kmers", "cuda:0"), ("dev.sort", "cuda:0"),
+                     ("dev.search", "cuda:0"), ("dev.next_hit", "cuda:0"),
+                     ("unit.replay", "pool")])
+                for k in range(2)] + [("dev.kernel", 0, t + 1, t + 2,
+                                       "cuda:0")]
+
+    lengths = [[3_000_000, 3_100_000, 5_000_000, 5_200_000],
+               [2_900_000, 5_100_000, 5_050_000]]
+    jobs = [_big_job(0.0, 0, 10, spans(0.0, 1)),
+            _big_job(4.0, 1, 6, spans(4.0, 3))]
+    name = "void parse_big_kernel(unsigned int const*, int)"
+    # kernel time inside matching: 0.2 (two overlapping intervals) + 0.3
+    # (job 0), 0.4 (job 1); the interval at 3.6 lies in job 0's store,
+    # and the other two are other operations
+    tr = Trace([1.0, 1.1, 2.0, 3.6, 5.0, 5.0, 6.0],
+               [1.2, 1.2, 2.3, 3.8, 5.4, 5.9, 6.5],
+               [name, name, name, name, name, "parse_group_kernel",
+                "Memcpy DtoH"], 0.0, 8.0)
+    run = _BigRun(jobs, tr, lengths)
+    for i, m in enumerate(BIG_SPAN_METRICS):
+        # (0.01 + 0.02) * (i + 1) a job at scale 1, three times at 3
+        assert _reader(m)(run) == pytest.approx(0.06 * (i + 1)), m
+    compares = nbytes = 0.0
+    for job in jobs:
+        c, b, pairs = work.all_pairs_work(lengths[job.coll])
+        big = job.stats["big_pairs"]
+        compares += c * big / pairs
+        nbytes += b - 12 * (pairs - big)
+    least, _ = work.least_seconds(compares, nbytes, work.peaks(H100))
+    got = _reader("kernels.big_roofline")(run)
+    assert got == pytest.approx(100.0 * least / 0.9)
+    err = capsys.readouterr().err
+    assert f"{compares:.6g} compares, {nbytes:.6g} bytes" in err
+    assert "parse_big_kernel 0.9 s" in err
 
 
 # --- on a card -------------------------------------------------------------
