@@ -36,7 +36,7 @@ def get_lib():
         lib = ct.CDLL(build.build_gxx("lzani_core", [_SRC]))
 
         lib.lza_abi_version.restype = ct.c_int32
-        assert lib.lza_abi_version() == 5
+        assert lib.lza_abi_version() == 6
 
         lib.lza_parse_pair.restype = ct.c_int64
         lib.lza_parse_pair.argtypes = [
@@ -122,6 +122,16 @@ def get_lib():
             ct.c_char_p, ct.c_int64, ct.c_double, ct.c_int64, ct.c_int32,
             ct.POINTER(ct.c_int64), ct.POINTER(ct.c_int32), ct.c_int64,
         ]
+        lib.lza_ingest_open.restype = ct.c_void_p
+        lib.lza_ingest_open.argtypes = [ct.c_int32, ct.c_int64]
+        lib.lza_ingest_feed.restype = ct.c_int64
+        lib.lza_ingest_feed.argtypes = [ct.c_void_p, ct.c_void_p, ct.c_int64,
+                                        ct.c_int32, i64p]
+        lib.lza_ingest_take.restype = None
+        lib.lza_ingest_take.argtypes = [ct.c_void_p, ct.c_void_p, i64p, i64p,
+                                        ct.c_void_p, i64p]
+        lib.lza_ingest_close.restype = None
+        lib.lza_ingest_close.argtypes = [ct.c_void_p]
         _lib = lib
         return lib
 
@@ -477,6 +487,60 @@ def parse_kmerdb_csr(body: bytes, thr: float, n_rows: int,
     if rc < 0:
         raise ValueError(f"Incorrect kmer-db filter file (code {rc})")
     return indptr, ids[:rc].copy()
+
+
+class FastaIngest:
+    """One file's pass from FASTA bytes to packed codes (``lza_ingest_*``,
+    run without the interpreter lock): `feed` it the file's bytes chunk by
+    chunk, ``final=True`` with the last (or an empty) chunk. In per-file
+    mode (`per_file`) the whole file is one record, its contigs joined by
+    `sep_len` symbols of code 5, and its name is left to the caller."""
+
+    def __init__(self, per_file: bool = False, sep_len: int = 0):
+        self._lib = get_lib()
+        self._h = self._lib.lza_ingest_open(int(per_file), int(sep_len))
+        if not self._h:
+            raise MemoryError("lza_ingest_open")
+
+    def feed(self, buf: np.ndarray, n: int, final: bool = False):
+        """Parse ``buf[:n]``. Returns the records it finished as (names
+        in bytes, latin-1, one str of them all; int64 name offsets, n + 1;
+        their packed bytes, one uint8 array; int64 packed offsets, n + 1;
+        int64 symbol counts), or None when it finished none."""
+        if buf.dtype != np.uint8 or buf.ndim != 1 or \
+                not buf.flags.c_contiguous or not 0 <= n <= len(buf):
+            raise ValueError("FastaIngest.feed: a contiguous uint8 buffer "
+                             "and 0 <= n <= its length")
+        sizes = np.zeros(2, np.int64)
+        i64p = ct.POINTER(ct.c_int64)
+        k = self._lib.lza_ingest_feed(self._h, buf.ctypes.data, n,
+                                      1 if final else 0,
+                                      sizes.ctypes.data_as(i64p))
+        if k < 0:
+            raise MemoryError("lza_ingest_feed")
+        if k == 0:
+            return None
+        packed = np.empty(sizes[0], np.uint8)
+        names = np.empty(sizes[1], np.uint8)
+        offs, name_offs = np.empty(k + 1, np.int64), np.empty(k + 1, np.int64)
+        slens = np.empty(k, np.int64)
+        self._lib.lza_ingest_take(
+            self._h, packed.ctypes.data, offs.ctypes.data_as(i64p),
+            slens.ctypes.data_as(i64p), names.ctypes.data,
+            name_offs.ctypes.data_as(i64p))
+        return names.tobytes().decode("latin-1"), name_offs, packed, offs, \
+            slens
+
+    def close(self) -> None:
+        if self._h:
+            self._lib.lza_ingest_close(self._h)
+            self._h = None
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
 
 
 # Column ids — must match lzfmt::COL_* in lzani_core.cpp.

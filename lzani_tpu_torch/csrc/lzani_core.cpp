@@ -831,6 +831,211 @@ static void unpack3_into(const uint8_t* packed, int64_t n_sym,
         *o++ = PACK3.t[packed[i / 3]][i % 3];
 }
 
+// --------------------------------------------------------------------------
+// FASTA ingest: raw FASTA bytes -> the store's packed codes in one pass
+// (the reservoir's loader, seq_reservoir.cpp:90-212, with the codec above).
+// A file is fed in chunks of any size; the parser's state (at a line's
+// start, in a header, in a sequence line) carries over between them.
+//   * ACGTacgt -> 0..3, '\r' and '\n' dropped, every other byte -> 5
+//   * '>' opens a header only at the start of a line
+//   * multisample: one record per header, named by the header with its
+//     trailing '\r's stripped and cut at the first space; a record whose
+//     stripped header is empty is dropped with its body; content before
+//     the first header is dropped
+//   * per file: one record for the whole file (named by the caller);
+//     lines before the first header are sequence, and each header line
+//     appends `sep_len` symbols of code 5 once the record is non-empty
+// Packed bytes are c0*36 + c1*6 + c2, trailing slots padded with 0.
+// Finished records wait in one arena until the caller takes them; the
+// open record's bytes follow them in the same arena.
+// --------------------------------------------------------------------------
+constexpr uint8_t ING_SKIP = 0xff;
+constexpr uint16_t ING_BAD = 0x100;   // a skipped byte in a table's sum
+
+// code of each byte; and each position's share of a packed byte, the
+// first two positions' in one table indexed by both bytes, ING_BAD for
+// '\r' and '\n'
+struct IngestLUT {
+    uint8_t code[256];
+    uint16_t third[256];
+    uint16_t pair[65536];
+    IngestLUT() {
+        std::memset(code, SYM_N_SEQ, sizeof code);
+        const char* acgt = "ACGT";
+        for (int c = 0; c < 4; ++c) {
+            code[(uint8_t)acgt[c]] = (uint8_t)c;
+            code[(uint8_t)(acgt[c] | 0x20)] = (uint8_t)c;
+        }
+        code[(uint8_t)'\r'] = code[(uint8_t)'\n'] = ING_SKIP;
+        auto share = [&](int b, int w) -> uint16_t {
+            return code[b] == ING_SKIP ? ING_BAD : (uint16_t)(code[b] * w);
+        };
+        for (int b = 0; b < 256; ++b) third[b] = share(b, 1);
+        for (int x = 0; x < 65536; ++x)   // bytes x & 255, then x >> 8
+            pair[x] = (uint16_t)(share(x & 255, 36) + share(x >> 8, 6));
+    }
+};
+static const IngestLUT ING_LUT;
+
+struct Ingest {
+    enum State : uint8_t { LINE_START, HEADER, SEQ };
+
+    bool per_file;
+    int64_t sep_len;
+    State state = LINE_START;
+    bool open;                    // a record takes the sequence lines
+    std::string header;           // the open record's header so far
+    uint32_t acc = 0;             // codes not yet in a byte, radix 6
+    int k = 0;                    // how many (0..2)
+    int64_t n_sym = 0;            // the open record's symbols
+    std::vector<uint8_t> arena;   // finished records, then the open one
+    size_t used = 0;              // arena bytes written
+    size_t rec_start = 0;         // the open record's first byte
+    std::vector<int64_t> off{0}, slen, name_off{0};
+    std::string names;
+
+    Ingest(bool pf, int64_t sep) : per_file(pf), sep_len(sep), open(pf) {}
+
+    uint8_t* room(size_t n) {
+        if (used + n > arena.size())
+            arena.resize(std::max(used + n, 2 * arena.size()));
+        return arena.data() + used;
+    }
+
+    inline void push(uint8_t c, uint8_t*& o) {
+        acc = acc * 6 + c;
+        if (++k == 3) {
+            *o++ = (uint8_t)acc;
+            acc = 0;
+            k = 0;
+        }
+    }
+
+    // code and pack the bytes [p, e) of the open record, dropping '\r' and
+    // '\n': whole triples through the tables while no byte is dropped,
+    // byte by byte around a dropped one
+    void code(const uint8_t* p, const uint8_t* e) {
+        uint8_t* o0 = room((size_t)(e - p) / 3 + 1);
+        uint8_t* o = o0;
+        const IngestLUT& t = ING_LUT;
+        const uint8_t* s = p;
+        int64_t dropped = 0;
+        while (p < e) {
+            if (k == 0) {
+                while (e - p >= 6) {
+                    uint32_t v = t.pair[p[0] | p[1] << 8] + t.third[p[2]];
+                    uint32_t w = t.pair[p[3] | p[4] << 8] + t.third[p[5]];
+                    if ((v | w) & (3 * ING_BAD)) break;
+                    o[0] = (uint8_t)v;
+                    o[1] = (uint8_t)w;
+                    o += 2;
+                    p += 6;
+                }
+                while (e - p >= 3) {
+                    uint32_t v = t.pair[p[0] | p[1] << 8] + t.third[p[2]];
+                    if (v & (3 * ING_BAD)) break;
+                    *o++ = (uint8_t)v;
+                    p += 3;
+                }
+                if (p == e) break;
+            }
+            uint8_t c = t.code[*p++];
+            if (c == ING_SKIP)
+                ++dropped;
+            else
+                push(c, o);
+        }
+        n_sym += (int64_t)(e - s) - dropped;
+        used += (size_t)(o - o0);
+    }
+
+    void separator() {
+        uint8_t* o0 = room((size_t)sep_len / 3 + 1);
+        uint8_t* o = o0;
+        for (int64_t i = 0; i < sep_len; ++i) push(SYM_N_SEQ, o);
+        n_sym += sep_len;
+        used += (size_t)(o - o0);
+    }
+
+    // close the open record: keep it (named) or drop it
+    void finish() {
+        if (k) {
+            *room(1) = (uint8_t)(acc * (k == 1 ? 36 : 6));
+            ++used;
+        }
+        size_t hl = header.size();
+        while (hl && header[hl - 1] == '\r') --hl;
+        if (!per_file && hl == 0) {
+            used = rec_start;
+        } else {
+            size_t cut = per_file ? 0 : std::min(hl, header.find(' '));
+            names.append(header, 0, cut);
+            name_off.push_back((int64_t)names.size());
+            off.push_back((int64_t)used);
+            slen.push_back(n_sym);
+        }
+        header.clear();
+        acc = 0;
+        k = 0;
+        n_sym = 0;
+        rec_start = used;
+    }
+
+    void feed(const uint8_t* p, const uint8_t* end) {
+        while (p < end) {
+            if (state == HEADER) {
+                const uint8_t* nl =
+                    (const uint8_t*)std::memchr(p, '\n', (size_t)(end - p));
+                const uint8_t* stop = nl ? nl : end;
+                if (!per_file)
+                    header.append((const char*)p, (size_t)(stop - p));
+                if (!nl) return;
+                p = nl + 1;
+                state = LINE_START;
+                continue;
+            }
+            if (state == LINE_START && *p == '>') {
+                if (per_file) {
+                    if (n_sym) separator();
+                } else {
+                    if (open) finish();
+                    open = true;
+                }
+                state = HEADER;
+                ++p;
+                continue;
+            }
+            // sequence lines, up to the next '>' that starts a line
+            const uint8_t* q = p + 1;
+            while ((q = (const uint8_t*)std::memchr(q, '>', (size_t)(end - q))) &&
+                   q[-1] != '\n')
+                ++q;
+            const uint8_t* stop = q ? q : end;
+            if (open) code(p, stop);
+            state = stop[-1] == '\n' ? LINE_START : SEQ;
+            p = stop;
+        }
+    }
+
+    // hand the finished records over; the open record moves to the front
+    void take(uint8_t* packed, int64_t* packed_off, int64_t* slens,
+              char* name_out, int64_t* name_offs) {
+        size_t nrec = slen.size();
+        std::memcpy(packed, arena.data(), rec_start);
+        std::memcpy(packed_off, off.data(), (nrec + 1) * sizeof(int64_t));
+        std::memcpy(slens, slen.data(), nrec * sizeof(int64_t));
+        std::memcpy(name_out, names.data(), names.size());
+        std::memcpy(name_offs, name_off.data(), (nrec + 1) * sizeof(int64_t));
+        std::memmove(arena.data(), arena.data() + rec_start, used - rec_start);
+        used -= rec_start;
+        rec_start = 0;
+        off.assign(1, 0);
+        slen.clear();
+        names.clear();
+        name_off.assign(1, 0);
+    }
+};
+
 }  // namespace lza
 
 // ============================================================================
@@ -1608,6 +1813,41 @@ int64_t lza_parse_kmerdb(const char* data, int64_t len, double thr,
     return total;
 }
 
+// FASTA ingest (lza::Ingest): open a parser for one file, feed it the
+// file's bytes in chunks (final != 0 after the last one), and take the
+// records each feed finished. A feed returns how many records wait, with
+// their packed bytes and their name bytes in sizes[0..1]; take copies
+// them out (packed_off and name_offs: n + 1 offsets each) and forgets
+// them. Returns -1, and open NULL, when memory runs out.
+void* lza_ingest_open(int32_t per_file, int64_t sep_len) {
+    try {
+        return new lza::Ingest(per_file != 0, sep_len);
+    } catch (const std::bad_alloc&) {
+        return nullptr;
+    }
+}
+
+int64_t lza_ingest_feed(void* h, const uint8_t* data, int64_t len,
+                        int32_t final, int64_t* sizes) {
+    auto* ing = (lza::Ingest*)h;
+    try {
+        ing->feed(data, data + len);
+        if (final && ing->open) ing->finish();
+    } catch (const std::bad_alloc&) {
+        return -1;
+    }
+    sizes[0] = (int64_t)ing->rec_start;
+    sizes[1] = (int64_t)ing->names.size();
+    return (int64_t)ing->slen.size();
+}
+
+void lza_ingest_take(void* h, uint8_t* packed, int64_t* packed_off,
+                     int64_t* slens, char* names, int64_t* name_offs) {
+    ((lza::Ingest*)h)->take(packed, packed_off, slens, names, name_offs);
+}
+
+void lza_ingest_close(void* h) { delete (lza::Ingest*)h; }
+
 // Build-info probe so Python can verify the ABI.
 // Two-ended shared row queue, packed into one int64 as {tail:32|head:32}
 // (init = n << 32). CPU workers pop longest-first rows from the head;
@@ -1784,6 +2024,6 @@ int64_t lza_replay_unit(const uint64_t* ptrs, const int64_t* slens,
 
 void lza_free(void* p) { std::free(p); }
 
-int32_t lza_abi_version(void) { return 5; }
+int32_t lza_abi_version(void) { return 6; }
 
 }  // extern "C"

@@ -8,7 +8,10 @@ memory_monotonic.h:137-184 parity — 1/3 B per symbol). ``store.codes`` is a
 ``PackedCodes`` view: list-like for the Python engines (items unpack
 transiently on access), zero-copy for the native all2all
 (``lza_all2all_packed`` unpacks per reference row / per query inside the
-worker, the reference's own schedule, parser.cpp:16-50).
+worker, the reference's own schedule, parser.cpp:16-50). The loaders read
+files in chunks through one native pass (``lza_ingest_*`` in
+``csrc/lzani_core.cpp``) that finds the records, drops the line ends,
+codes and packs; ``encode_dna`` and ``pack3`` are its tests' oracle.
 
 Semantics preserved:
   * DNA code map: ACGTacgt -> 0..3, everything else -> 5 (seq_reservoir.h:241-248)
@@ -26,6 +29,7 @@ from __future__ import annotations
 
 import gzip
 import os
+import time
 
 import numpy as np
 
@@ -35,6 +39,9 @@ CODE_A, CODE_C, CODE_G, CODE_T = 0, 1, 2, 3
 CODE_N_REF = 4
 CODE_N_SEQ = 5
 
+#: bytes a load reads and parses at a time
+INGEST_CHUNK = 4 << 20
+
 _DNA_CODE = np.full(256, CODE_N_SEQ, dtype=np.uint8)
 for _ch, _code in (("A", 0), ("C", 1), ("G", 2), ("T", 3)):
     _DNA_CODE[ord(_ch)] = _code
@@ -42,74 +49,20 @@ for _ch, _code in (("A", 0), ("C", 1), ("G", 2), ("T", 3)):
 
 
 def encode_dna(seq_bytes: bytes) -> np.ndarray:
-    """Map raw sequence bytes to 6-symbol codes."""
+    """Map raw sequence bytes to 6-symbol codes (the oracle of the native
+    ingest's coding)."""
     return _DNA_CODE[np.frombuffer(seq_bytes, dtype=np.uint8)]
 
 
 def _open_bin(path: str):
-    """Binary line stream (plain or gzip); the loaders work on raw bytes
-    and only decode header names (latin-1 = 1:1 byte mapping), so the hot
-    path never round-trips sequence data through str."""
+    """Binary stream (plain, or inflated by Python's gzip); the native
+    pass reads raw bytes and only header names are decoded (latin-1 = 1:1
+    byte mapping)."""
     with open(path, "rb") as fh:
         magic = fh.read(2)
     if magic == b"\x1f\x8b":
         return gzip.open(path, "rb")
     return open(path, "rb")
-
-
-def _record_spans(data: bytes):
-    """Yield (header_start, header_line_end, body_end) for each '>' record.
-    A '>' opens a header only at the start of a line (matching the
-    reference's per-line first-char test)."""
-    n = len(data)
-    pos = 0
-    # find the first header: '>' at offset 0 or right after a newline
-    if data[:1] == b">":
-        start = 0
-    else:
-        p = data.find(b"\n>")
-        start = -1 if p < 0 else p + 1
-    while start >= 0:
-        hdr_end = data.find(b"\n", start)
-        if hdr_end < 0:
-            yield start, n, n
-            return
-        p = data.find(b"\n>", hdr_end)
-        body_end = n if p < 0 else p + 1
-        yield start, hdr_end, body_end
-        start = -1 if p < 0 else p + 1
-
-
-def _iter_records(fh, chunk: int = 32 << 20):
-    """Stream b'>hdr\\n<body>' records from a binary file object with
-    bounded memory (one chunk + one record). Content before the first
-    header is dropped — the same semantics as _record_spans; a '>' opens
-    a header only at the start of a line."""
-    buf = bytearray()
-    seen_header = False
-    while True:
-        data = fh.read(chunk)
-        if not data:
-            break
-        buf += data
-        if not seen_header:
-            if buf[:1] == b">":
-                seen_header = True
-            else:
-                p = buf.find(b"\n>")
-                if p < 0:
-                    del buf[:-1]  # keep 1 byte: "\n>" may span the boundary
-                    continue
-                del buf[:p + 1]
-                seen_header = True
-        while True:
-            p = buf.find(b"\n>")
-            if p < 0:
-                break
-            yield bytes(buf[:p + 1])
-            del buf[:p + 1]
-    if seen_header and buf:
-        yield bytes(buf)
 
 
 def _cut_at_space(name: str) -> str:
@@ -136,6 +89,10 @@ class SequenceStore:
         self._packed: list[np.ndarray] = []   # per-item packed bytes
         self._slens: list[int] = []
         self._view: PackedCodes | None = None
+        #: what the loads read (bytes, after gzip) and their seconds, from
+        #: the first read to the last item stored
+        self.ingest_bytes = 0
+        self.ingest_s = 0.0
 
     def __len__(self) -> int:
         return len(self.names)
@@ -167,52 +124,55 @@ class SequenceStore:
         self.no_parts.append(1)
         self._view = None
 
-    def load_multifasta(self, paths: list[str]) -> None:
-        """One item per '>' record, named by its header. Bulk parser: one
-        Python iteration per RECORD, not per line (header scan via
-        bytes.find, newline strip via bytes.translate) — the line loop the
-        reference affords in C++ (seq_reservoir.cpp:156-212) would dominate
-        ingest at the 10k-genome scale in Python. Files stream in bounded
-        chunks so ingest RSS is (packed arena + one record), not the file."""
-        for path in paths:
-            with _open_bin(path) as fh:
-                for rec in _iter_records(fh):
-                    hdr_end = rec.find(b"\n")
-                    if hdr_end < 0:
-                        hdr_end = len(rec)
-                    name = rec[1:hdr_end].rstrip(b"\r").decode("latin-1")
-                    if not name:
-                        continue  # reference: empty header never stored
-                    body = rec[hdr_end:].translate(None, b"\r\n")
-                    self.add(name, encode_dna(body))
+    def load_multifasta(self, paths: list[str],
+                        chunk: int = INGEST_CHUNK) -> None:
+        """One item per '>' record, named by its header."""
+        self._ingest(paths, False, 0, chunk)
 
-    def load_fasta_per_file(self, paths: list[str], sep_len: int) -> None:
-        """One item per FILE; contigs joined with ``sep_len`` N-separators.
-        Mirrors the reference exactly: a separator is appended on each '>'
-        line whenever the accumulated sequence is non-empty
-        (seq_reservoir.cpp:112-130), so empty records between non-empty
-        ones still produce separators."""
-        sep = b"\x00" * sep_len  # NUL codes to 5 (CODE_N_SEQ) like any non-ACGT
+    def load_fasta_per_file(self, paths: list[str], sep_len: int,
+                            chunk: int = INGEST_CHUNK) -> None:
+        """One item per FILE, named by the file's name; contigs joined with
+        ``sep_len`` N-separators. Mirrors the reference exactly: a
+        separator is appended on each '>' line whenever the accumulated
+        sequence is non-empty (seq_reservoir.cpp:112-130), so empty records
+        between non-empty ones still produce separators, and lines before
+        the first header are sequence."""
+        self._ingest(paths, True, sep_len, chunk)
+
+    def _ingest(self, paths: list[str], per_file: bool, sep_len: int,
+                chunk: int) -> None:
+        """Read each file in chunks of `chunk` bytes (after gzip) through
+        the native parser (``native_engine.FastaIngest``: one pass that
+        finds the records, drops the line ends, codes and packs), so that
+        ingest memory is the packed arena plus one chunk. Each finished
+        record becomes an item, its packed bytes a view of the arena of
+        the chunk that finished it."""
+        from ..core.native_engine import FastaIngest
+
+        t0 = time.perf_counter()
+        buf = np.empty(chunk, np.uint8)
         for path in paths:
-            with _open_bin(path) as fh:
-                data = fh.read()
-            chunks: list[bytes] = []
-            total = 0
-            spans = list(_record_spans(data))
-            # lines before the first header are sequence (reference parity)
-            pre_end = spans[0][0] if spans else len(data)
-            pre = data[:pre_end].translate(None, b"\r\n")
-            if pre:
-                chunks.append(pre)
-                total += len(pre)
-            for start, hdr_end, body_end in spans:
-                if total:
-                    chunks.append(sep)
-                    total += sep_len
-                body = data[hdr_end:body_end].translate(None, b"\r\n")
-                chunks.append(body)
-                total += len(body)
-            self.add(os.path.basename(path), encode_dna(b"".join(chunks)))
+            name = os.path.basename(path) if per_file else None
+            with _open_bin(path) as fh, FastaIngest(per_file, sep_len) as ing:
+                while True:
+                    n = fh.readinto(buf)
+                    self.ingest_bytes += n
+                    got = ing.feed(buf, n, final=n == 0)
+                    if got is not None:
+                        self._append(name, *got)
+                    if n == 0:
+                        break
+        self.ingest_s += time.perf_counter() - t0
+
+    def _append(self, name, names, name_offs, packed, offs, slens) -> None:
+        no, po = name_offs.tolist(), offs.tolist()
+        for i in range(len(slens)):
+            self.names.append(names[no[i]:no[i + 1]] if name is None
+                              else name)
+            self._packed.append(packed[po[i]:po[i + 1]])
+        self._slens += slens.tolist()
+        self.no_parts += [1] * len(slens)
+        self._view = None
 
     def reorder(self) -> np.ndarray:
         """Stable longest-first sort; returns ``reordering_map`` with

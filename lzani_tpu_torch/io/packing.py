@@ -48,8 +48,9 @@ class PackedCodes:
     ``codes[i]`` unpacks on demand (tiny thread-safe MRU memo — the hybrid
     finalizer touches the same reference for many pairs in a row); the
     native engine consumes the per-item pointer table zero-copy via
-    ``lza_all2all_packed`` (no concatenated arena is ever materialized, so
-    ingest peak RSS is the packed bytes plus one transient record).
+    ``lza_all2all_packed`` (an item may be a view into the packed arena of
+    the ingest chunk that finished it; no arena of the whole store is
+    built, so ingest peak RSS is the packed bytes plus one chunk).
     Slicing returns a sub-view sharing the chunks.
     """
 

@@ -41,9 +41,12 @@ ALIASES = {"auto": "hybrid", "pallas": "cuda"}
 
 
 class Matcher:
-    """One all-vs-all run. After a cuda, hybrid or jax run,
-    ``engine_stats`` holds the engine's counters (see ``all2all_cuda``,
-    ``all2all_hybrid`` and ``all2all_jax``)."""
+    """One all-vs-all run. After the load, ``engine_stats`` holds the
+    ingest's counters (``ingest_bytes``: bytes read, after gzip;
+    ``ingest_records``: items stored; ``ingest_s``: seconds from the first
+    read to the last item stored); a cuda, hybrid or jax run adds the
+    engine's (see ``all2all_cuda``, ``all2all_hybrid`` and
+    ``all2all_jax``). ``-V 2`` prints them all on one line."""
 
     def __init__(self, params: Params, device=None):
         self.params = params
@@ -68,8 +71,8 @@ class Matcher:
             print(msg, file=sys.stderr)
 
     def _log_stats(self, stats: dict) -> None:
-        """The engine's counters at ``-V 2``, one JSON line; spans, when
-        recorded, as their count."""
+        """The ingest's and the engine's counters at ``-V 2``, one JSON
+        line; spans, when recorded, as their count."""
         if self.params.verbosity_level >= 2:
             line = dict(stats)
             if "spans" in line:
@@ -160,6 +163,9 @@ class Matcher:
 
         self._log("Loading sequences")
         self.store = load_store(p)
+        self.engine_stats = {"ingest_bytes": self.store.ingest_bytes,
+                             "ingest_records": len(self.store),
+                             "ingest_s": self.store.ingest_s}
         self._mark("Loading sequences")
 
         if p.filter_file_name:
@@ -244,27 +250,23 @@ class Matcher:
             # torch-free at import: the warm-up thread imports torch
             from .ops.hybrid import all2all_hybrid
 
-            stats = {}
             triples = all2all_hybrid(self.store.codes, p, filter_csr=eng_csr,
                                      region_path=eng_region,
                                      progress=self._make_progress_cb(),
-                                     device=self.device, stats=stats)
-            self.engine_stats = stats
-            self._log_stats(stats)
+                                     device=self.device,
+                                     stats=self.engine_stats)
         elif backend == "cuda":
             from .ops.cuda_engine import all2all_cuda
 
             if self._device_setup is not None:
                 self._device_setup.join()
-            stats: dict = {}
             triples = all2all_cuda(self.store.codes, p, filter_csr=eng_csr,
                                    region_path=eng_region,
                                    progress=self._make_progress_cb(),
                                    replay_threads=p.no_threads,
-                                   device=self.device, stats=stats,
+                                   device=self.device,
+                                   stats=self.engine_stats,
                                    card_share=self.card_share)
-            self.engine_stats = stats
-            self._log_stats(stats)
         elif backend == "jax" and region_path:
             # the automaton has no regions path: one native pass serves
             # the triples and the regions (lzani_tpu/matcher.py)
@@ -276,14 +278,12 @@ class Matcher:
 
             if self._device_setup is not None:
                 self._device_setup.join()
-            stats = {}
             triples = all2all_jax(self.store.codes, p, filter_csr=eng_csr,
                                   progress=self._make_progress_cb(),
-                                  device=self.device, stats=stats)
-            self.engine_stats = stats
-            self._log_stats(stats)
+                                  device=self.device, stats=self.engine_stats)
         else:
             raise ValueError(f"Unknown backend: {p.backend}")
+        self._log_stats(self.engine_stats)
         if self.num_processes > 1:
             triples = self._merge(triples, slots, csr, region_path,
                                   eng_region)

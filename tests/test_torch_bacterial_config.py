@@ -30,7 +30,7 @@ def test_the_cell_is_the_long_genome_deployment(cell):
     assert {m["name"] for m in cell["per_layer"]} == {
         "big.kmers_device_s", "big.sort_device_s", "big.search_device_s",
         "big.next_hit_device_s", "replay.big_wall_s",
-        "kernels.big_roofline"}
+        "kernels.big_roofline", "ingest.mb_per_s"}
 
 
 def test_every_pair_equals_the_plain_reference(cell, tmp_path):
