@@ -250,8 +250,8 @@ def check_kernel(dev, codes, params):
                                                   parse_events_plain)
 
     eng = ce.CudaAll2All(codes, params, devices=[dev])
-    gi = eng.build_group_index([0, 1, 2, 3], dev)
-    args, overflow = eng.group_args(gi, 0, dev)
+    gi = eng.routes["group"].build([0, 1, 2, 3], dev)
+    args, overflow = eng.routes["group"].args(gi, 0, dev)
     series = {}
     k = kernel_vs_plain(parse_events, parse_events_plain, args,
                         args[6].expand(4, -1), reps=10, series=series)
@@ -273,7 +273,7 @@ def check_replay_unit(codes, params, k, td):
                                               row_wanted, unit_pairs)
 
     eng = k["eng"]
-    logs = eng.collect_group((k["ev"], k["nev"], k["overflow"]))
+    logs = eng.routes["group"].collect((k["ev"], k["nev"], k["overflow"]))
     n, B = len(codes), eng.B
     r_list = [0, 1, 2, 3]
     pg, pr, pq, pslot, pb = unit_pairs(
@@ -364,8 +364,8 @@ def big_launch(dev, codes, params):
         raise AssertionError(f"rows off the long-genome path: {eng.paths}")
     G, _ = eng.big_launch_shape(len(codes), dev)
     r_list = list(range(G))
-    bidx = eng.build_big_index(r_list, dev)
-    return eng, r_list, eng.big_args(bidx, r_list, 0, dev)
+    bidx = eng.routes["big"].build(r_list, dev)
+    return eng, r_list, eng.routes["big"].args(bidx, r_list, 0, dev)
 
 
 def reduced_big_set():
@@ -411,7 +411,7 @@ def check_big_kernel(dev, bact_codes, bact_names, params):
                 heavy=probe_heaviest(args, full, big=True))
     warps, blocks = parse_events_big.last_plan    # the timed launches
     full["plan"] = dict(warps=warps, blocks=blocks)
-    logs = eng.collect_big((full["ev"], full["nev"]))
+    logs = eng.routes["big"].collect((full["ev"], full["nev"]))
     species = [n.split("_")[0] for n in bact_names]
     within = [(r, q) for r in r_list for q in range(eng.B_big)
               if q < len(bact_codes) and q != r and species[r] == species[q]]
@@ -461,7 +461,7 @@ def check_ref_routes(dev, names, codes, params, kernel, plain):
                          by_instantiation=launches_b, B=len(queries),
                          LqP=args[1].shape[1], skipped=int(ovf.sum()),
                          logs=logs_b, args=args, overflow=ovf)}
-    args, _ = eng.group_args(eng.build_index(0, dev), 0, dev)
+    args, _ = eng.routes["group"].args(eng.build_index(0, dev), 0, dev)
     res = kernel_vs_plain(kernel, plain, args, args[6][None], reps=3,
                           plain_on="cpu")
     out["range"] = dict(res, launches=launches_r["launches"],
@@ -537,9 +537,9 @@ def sampled_oracle_check(dev, codes, params, rng):
         qs = [int(q) for q in rng.choice(n, per_group, replace=False)]
         idx = np.full(eng.B, qs[-1], np.int64)
         idx[:len(qs)] = qs
-        gi = eng.build_group_index(refs, dev)
-        evs = eng.collect_group(eng.dispatch_group(
-            gi, None, dev, qrows=eng.gather_qrows(idx, dev)))
+        route = eng.routes["group"]
+        gi = route.build(refs, dev)
+        evs = route.collect(route.dispatch(gi, refs, None, dev, idx))
         for g, r in enumerate(refs):
             for b, q in enumerate(qs):
                 if evs[g][b] is None:

@@ -463,7 +463,8 @@ def _big(a, dev, smi, base_lib, saved) -> None:
     beng = ce.CudaAll2All(bcodes, synth.bacterial_params(), devices=[dev])
     Gb, Bb = beng.big_launch_shape(len(bcodes), dev)
     r_list = list(range(Gb))
-    bargs = beng.big_args(beng.build_big_index(r_list, dev), r_list, 0, dev)
+    broute = beng.routes["big"]
+    bargs = broute.args(broute.build(r_list, dev), r_list, 0, dev)
     tag = f"bacterial launch G_big={Gb} x B_big={Bb}"
     if a.probe:
         _probe(tag, bargs, smi, saved, "big", big=True)
@@ -526,10 +527,10 @@ def main(argv=None) -> int:
     eng = ce.CudaAll2All(codes, params, devices=[dev])
     B = eng.B
 
-    def group_args(gi, Bq):
+    def launch_args(gi, Bq):
         """Kernel arguments of gi's references x the first Bq queries."""
         qrows = (eng.Q[dev][:Bq], eng.DSZ[dev][:Bq])
-        return eng.group_args(gi, None, dev, qrows)[0]
+        return eng.routes["group"].args(gi, None, dev, qrows)[0]
 
     qs = sorted(range(1, len(codes)), key=lambda q: eng.dszs[q])
     idx = ce.CudaRefIndex(codes[0], params, dev)
@@ -541,12 +542,12 @@ def main(argv=None) -> int:
         _fold(a, dev, smi, codes, params, (rargs, rovf), (bargs64, bovf))
         return 0
     if a.timing:
-        _timing(group_args(eng.build_group_index([0, 1, 2, 3], dev), B),
+        _timing(launch_args(eng.routes["group"].build([0, 1, 2, 3], dev), B),
                 smi)
     saved = {}
     if a.probe:
-        _probe("group dispatch G=4 B=256", group_args(
-            eng.build_group_index([0, 1, 2, 3], dev), B), smi, saved,
+        _probe("group dispatch G=4 B=256", launch_args(
+            eng.routes["group"].build([0, 1, 2, 3], dev), B), smi, saved,
             "group")
         _probe(f"row launch G=1 B={len(qs)}", rargs, smi, saved, "row")
 
@@ -562,14 +563,14 @@ def main(argv=None) -> int:
 
     gis = {}
     for G in (4, 8, 16):
-        gis[G] = eng.build_group_index(list(range(G)), dev)
-        ms, out = _kernel_ms("lzt_parse_events", group_args(gis[G], B))
+        gis[G] = eng.routes["group"].build(list(range(G)), dev)
+        ms, out = _kernel_ms("lzt_parse_events", launch_args(gis[G], B))
         print(f"G={G} B={B}: {ms:.2f} ms, {ms / (G * B):.4f} ms per pair; "
               f"{plan(G, B, eng.LrP_ref)} [{smi}]", flush=True)
         if G == 4:
             out4, nev4 = out, out[1].cpu().numpy()
     for Bq in (64, 128):
-        ms, _ = _kernel_ms("lzt_parse_events", group_args(gis[4], Bq))
+        ms, _ = _kernel_ms("lzt_parse_events", launch_args(gis[4], Bq))
         print(f"G=4 B={Bq}: {ms:.2f} ms; {plan(4, Bq, eng.LrP_ref)} "
               f"[{smi}]", flush=True)
     for tag, args in ((f"row launch G=1 B={len(qs)}", rargs),
@@ -577,7 +578,7 @@ def main(argv=None) -> int:
         ms, _ = _kernel_ms("lzt_parse_events", args)
         where = plan(1, args[1].shape[0], args[0].shape[1])
         print(f"{tag}: {ms:.3f} ms; {where} [{smi}]", flush=True)
-    ms, dout = _kernel_ms("lzt_parse_events", group_args(gis[4], B),
+    ms, dout = _kernel_ms("lzt_parse_events", launch_args(gis[4], B),
                           smem_max=0)
     if not _same_logs(dout, out4):
         raise AssertionError("the two instantiations' logs differ")
@@ -587,8 +588,8 @@ def main(argv=None) -> int:
 
     for flat in np.argsort(nev4, axis=None)[::-1][:3]:
         g, b = np.unravel_index(flat, nev4.shape)
-        gi = eng.build_group_index([int(g)], dev)
-        args, _ = eng.group_args(gi, None, dev,
+        gi = eng.routes["group"].build([int(g)], dev)
+        args, _ = eng.routes["group"].args(gi, None, dev,
                                  eng.gather_qrows([int(b)], dev))
         ms, _ = _kernel_ms("lzt_parse_events", args)
         print(f"pair ({g},{b}) alone: {len(codes[g])} x {len(codes[b])} bp, "
@@ -602,8 +603,8 @@ def main(argv=None) -> int:
     rel = synth.mutate(rng, ref, 0.01, n_ns=3, indels=10)
     rel[100_000:101_500] = rng.randint(0, 4, 1500)
     leng = ce.CudaAll2All([ref, rel], params, devices=[dev])
-    largs, _ = leng.group_args(leng.build_group_index([0, 1, -1, -1], dev),
-                               0, dev)
+    lroute = leng.routes["group"]
+    largs, _ = lroute.args(lroute.build([0, 1, -1, -1], dev), 0, dev)
     ms, out = _kernel_ms("lzt_parse_events", largs)
     bound, by = launch_bound_ms(largs, out[1], largs[6].expand(4, -1))
     plain_ms = {}
@@ -627,7 +628,7 @@ def main(argv=None) -> int:
 
     if base_lib is not None:
         _versus(f"group dispatch G=4 B={B}", "lzt_parse_events",
-                group_args(gis[4], B), base_lib, 3, smi)
+                launch_args(gis[4], B), base_lib, 3, smi)
         _versus(f"row launch G=1 B={len(qs)}", "lzt_parse_events", rargs,
                 base_lib, 3, smi)
         _versus("batch G=1 B=64", "lzt_parse_events", bargs64, base_lib, 3,

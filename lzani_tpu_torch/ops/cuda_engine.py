@@ -1,41 +1,24 @@
 """All-vs-all device engine of the port: resident state, plain-torch prep
-and the group and long-genome dispatches around the CUDA event-log parse
-kernels.
+and the two device routes around the CUDA event-log parse kernels.
 
 Counterpart of the group and long-genome paths of
 ``lzani_tpu/ops/pallas_engine.py`` (``PallasAll2All``,
 ``PallasGroupIndex``, ``_get_group_step``, ``build_big_index``,
-``dispatch_big``, ``collect_big``, ``all2all_pallas``). Per run, the
-query matrix is packed 3 symbols per byte and kept resident on the
-device with a length table. Per group of G = 4 references, the packed
-composite buffers, WIN bit tables and lengths are uploaded once, and the
-11-mer join (a stable sort plus counts, giving ``ptab = start << 7 |
-min(count, 127)`` and ``poslist``) is built once on the device. Each
-dispatch covers G references x B queries: it unpacks the queries,
-gathers their anchor candidates, flags rows whose candidate count
-exceeds CNT_CAP, computes ``next_hit`` by a reverse cummin, and launches
-the parse kernel. The event logs come back
-to the host compacted (``EventLogs``: the kept records back to back),
-and each unit's logs are replayed by one native call on a thread pool
-(``finalize.UnitReplay``).
-
-Rows whose composite reference exceeds MAX_REF_SYMS, and every row when
-the query bucket exceeds MAX_Q or mal > 13 (no dense 4^mal table), take
-the long-genome path instead: per group of G_big references a
-``BigIndex`` holds the sorted two-word-key join (``big.py``), and each
-dispatch of G_big references x B_big queries builds a two-plane
-candidate table with unbounded counts and launches the big kernel. Only
-rows above MAX_BIG_SYMS run on the native engine.
-
-The per-reference API of the JAX package runs on the group kernel too,
-as groups of G = 1 with the join and the prep on the device:
-``CudaRefIndex`` (``PallasRefIndex``: one reference x a batch of query
-sequences) and ``CudaAll2All.dispatch_range`` / ``collect`` /
-``run_range`` (one reference x B queries of the engine).
-
-Everything here is plain PyTorch on an explicit ``torch.device``; the
-only kernels written by hand are ``parse_kernel.parse_events`` and
-``parse_kernel.parse_events_big``.
+``dispatch_big``, ``collect_big``, ``all2all_pallas``). The query matrix
+is packed 3 symbols per byte and kept resident on the device. Each
+reference row is routed as the JAX package routes it (``row_path``) to
+the group route (``GroupRoute``: groups of 4, the dense 11-mer join,
+``parse_events``), the long-genome route (``BigRoute``: the sorted
+two-word-key join of ``big.py``, ``parse_events_big``) or, above
+MAX_BIG_SYMS, the native engine. ``all2all_cuda`` plans the run
+(``plan.py``) and drives each unit through its route: a group's index
+built once on the device, a unit's prep and launch, its logs downloaded
+compacted (``EventLogs``) and replayed by one native call on a thread
+pool (``finalize.UnitReplay``). The per-reference API runs on the group
+route with G = 1: ``CudaRefIndex`` (``PallasRefIndex``) and
+``CudaAll2All.dispatch_range`` / ``collect`` / ``run_range``. All is
+plain PyTorch on an explicit ``torch.device`` but the two hand-written
+kernels, ``parse_kernel.parse_events`` and ``parse_events_big``.
 """
 
 from __future__ import annotations
@@ -51,16 +34,15 @@ import torch
 from ..core import native_engine
 from .anchor_tables import SAT, win_words
 from .big import big_query_prep, big_ref_join
-from .finalize import NO_PAIRS, UnitReplay, row_wanted, unit_pairs
+from .finalize import UnitReplay
 from .parse import ParseCfg
 from .parse_kernel import parse_events, parse_events_big
+from .plan import Layout, Plan, route_rows
 from .prep import SYM_N_REF, SYM_N_SEQ, query_buffer_np, ref_buffer_np
 from .spans import OFF, Spans, UnitSpans, requested
 
 
-# ---------------------------------------------------------------------------
-# host helpers (numpy; copies of pallas_engine.py:214-249, 1059-1068)
-# ---------------------------------------------------------------------------
+# ---- host helpers (numpy; pallas_engine.py:214-249, 1059-1068) ------------
 
 def _pad128(n):
     return -(-n // 128) * 128
@@ -101,9 +83,7 @@ def pack_bits_i32(bits: np.ndarray, pad_words: int) -> np.ndarray:
     return words.view(np.int32).reshape(1, W)
 
 
-# ---------------------------------------------------------------------------
-# device prep (plain torch; pallas_engine.py:228-235, 1783-1795, 2094-2145)
-# ---------------------------------------------------------------------------
+# ---- device prep (torch; pallas_engine.py:228-235, 1783-1795, 2094-2145)
 
 def dev_unpack3(packed: torch.Tensor, L: int) -> torch.Tensor:
     """(R, Lp) radix-216 uint8 bytes -> (R, L) int32 codes."""
@@ -185,9 +165,19 @@ def query_prep(q_rows: torch.Tensor, dsz: torch.Tensor, ptab: torch.Tensor,
     return q.to(torch.uint8).contiguous(), cand, next_hit, overflow
 
 
-# ---------------------------------------------------------------------------
-# envelope and routing
-# ---------------------------------------------------------------------------
+def group_kernel_args(idx, q_rows, dsz, LqP: int, cfg, cap: int):
+    """(the arguments of ``parse_events`` for the references of the
+    ``GroupIndex`` `idx` x the queries `q_rows` ((B, W) uint8, packed 3
+    symbols a byte, W >= LqP / 3) of lengths `dsz` ((B,) int32, the mrd
+    guard in) at query bucket `LqP` and event cap `cap`, the (G, B) flags
+    of rows with an anchor bucket over CNT_CAP)."""
+    qbuf, cand, next_hit, overflow = query_prep(
+        q_rows, dsz, idx.ptab, LqP, cfg.mal, cfg.msl, CudaAll2All.CNT_CAP)
+    return ((idx.refbuf, qbuf, idx.poslist, cand, next_hit, idx.win,
+             dsz.contiguous(), idx.nrs, cfg, cap), overflow)
+
+
+# ---- envelope and routing --------------------------------------------------
 
 def device_envelope_reason(params) -> str | None:
     """Why a parameter set falls outside the CUDA kernel's envelope, or
@@ -215,17 +205,35 @@ def query_shape(codes, mrd: int):
     return dszs, _bucket(int(dszs.max(initial=0)) + 1024)
 
 
-# ---------------------------------------------------------------------------
-# resident state
-# ---------------------------------------------------------------------------
+def _warn(params, msg, level=1):
+    """Print `msg` on standard error at verbosity `level` and above."""
+    if getattr(params, "verbosity_level", 1) >= level:
+        print(msg, file=sys.stderr)
 
-class GroupIndex:
-    """Device state of a group of G references sharing the run-wide shape
-    buckets (counterpart of PallasGroupIndex): packed composite buffers,
-    WIN bit tables, composite lengths, plus the unpacked buffers and the
-    anchor join, built once on the device. `spans` (``spans.UnitSpans``)
-    records the join's device time as ``dev.join``; ``win_s`` holds the
-    host seconds the WIN words took (``anchor_tables.win_words``)."""
+
+def _entries(device, devices) -> list:
+    """A run's device entries: `devices`, [`device`] or the current card."""
+    if devices is None:
+        if device is None:
+            if not torch.cuda.is_available():
+                raise RuntimeError("all2all_cuda: no CUDA device")
+            device = torch.device("cuda", torch.cuda.current_device())
+        devices = [device]
+    elif device is not None or not devices:
+        raise ValueError("all2all_cuda: give `device` or a non-empty "
+                         "`devices`, not both")
+    return [torch.device(d) for d in devices]
+
+
+# ---- resident state --------------------------------------------------------
+
+class _RefSet:
+    """What both routes' indexes hold for G references at shared length
+    buckets: `refbuf` (G, LrP) uint8 codes, `win` (G, WinP) int32 WIN bit
+    words, `nrs` (G,) int32 composite lengths, `win_s` (host seconds of
+    ``anchor_tables.win_words``). A subclass uploads the buffers
+    (``_upload``) and builds its join on the device (``_join``; `spans`
+    records it as ``dev.join``)."""
 
     def __init__(self, codes_list, params, device, LrP: int | None = None,
                  KaP: int | None = None, spans=OFF):
@@ -251,10 +259,16 @@ class GroupIndex:
         with spans.stage("dev.join"):
             self._join(refbuf, cfg, spans)
 
+
+class GroupIndex(_RefSet):
+    """Device state of a group-route group (counterpart of
+    PallasGroupIndex): the buffers, also in their packed transfer form
+    `refbuf_p`, and the dense anchor join ``ptab`` / ``poslist``
+    (``group_join``)."""
+
     def _upload(self, bufs, dev):
-        """Upload the (G, LrP) uint8 buffers in the packed transfer form
-        (``refbuf_p``) and unpack them on the device; returns the codes
-        the join reads."""
+        """Upload the (G, LrP) uint8 buffers packed (``refbuf_p``) and
+        unpack them on the device; returns the codes the join reads."""
         rbp = pack3_rows(bufs)
         rbp_padded = np.zeros((self.G, _pad128(rbp.shape[1])), np.uint8)
         rbp_padded[:, :rbp.shape[1]] = rbp
@@ -267,17 +281,15 @@ class GroupIndex:
         self.ptab, self.poslist = group_join(refbuf, cfg.mal, self.KaP)
 
 
-class BigIndex(GroupIndex):
+class BigIndex(_RefSet):
     """Device state of G long-genome references at the run's big buckets
-    (counterpart of ``build_big_index``): the buffers, WIN tables and
-    lengths of ``GroupIndex``, with the sorted join in place of the dense
-    table: ``keys`` (G, LrP) int64 sorted k-mer keys and ``poslist``
-    (G, KaP) int32 positions in the same order."""
+    (counterpart of ``build_big_index``): the buffers and the sorted
+    join, ``keys`` (G, LrP) int64 sorted k-mer keys and ``poslist`` (G,
+    KaP) int32 positions in the same order (``big_ref_join``)."""
 
     def _upload(self, bufs, dev):
-        """The buffers go up as they are (no ``refbuf_p``): at megabase
-        sizes packing them on the host costs more than the transfer it
-        saves."""
+        """The buffers go up as they are: at megabase sizes packing them
+        on the host costs more than the transfer it saves."""
         self.refbuf = torch.from_numpy(bufs).to(dev)
         return self.refbuf
 
@@ -290,11 +302,9 @@ class BigIndex(GroupIndex):
 class CudaRefIndex:
     """One reference for the event-log kernel (counterpart of
     ``PallasRefIndex``, pallas_engine.py:1195-1336): a one-reference
-    ``GroupIndex`` (buffer, WIN table, the join built on the device); each
-    query batch goes through ``query_prep`` and one launch of
-    ``parse_events`` (G = 1 reference x B = len(queries)). `device`
-    defaults to the current CUDA device; a CPU device runs the kernel's
-    plain version (tests)."""
+    ``GroupIndex``; each query batch is one launch of ``parse_events``
+    (G = 1 x B = len(queries)). `device` defaults to the current CUDA
+    device; a CPU device runs the kernel's plain version (tests)."""
 
     #: records per query of the JAX package's buffer; logs of more than
     #: MAXEV - 16 events fall back to the native engine, as there
@@ -319,15 +329,10 @@ class CudaRefIndex:
             self.device), torch.from_numpy(dsz).to(self.device), LqP)
 
     def rows_args(self, q_rows, dsz, LqP: int):
-        """``batch_args`` of query rows already on the device: (B, W)
-        uint8 rows packed 3 symbols per byte (``pack3_rows``, W >= LqP / 3)
-        and their (B,) int32 lengths with the mrd guard, at query bucket
-        `LqP`."""
-        cfg, gi = self.cfg, self.gidx
-        qbuf, cand, next_hit, overflow = query_prep(
-            q_rows, dsz, gi.ptab, LqP, cfg.mal, cfg.msl, CudaAll2All.CNT_CAP)
-        return ((gi.refbuf, qbuf, gi.poslist, cand, next_hit, gi.win,
-                 dsz.contiguous(), gi.nrs, cfg, self.MAXEV - 16), overflow)
+        """``batch_args`` of query rows already on the device
+        (``group_kernel_args``)."""
+        return group_kernel_args(self.gidx, q_rows, dsz, LqP, self.cfg,
+                                 self.MAXEV - 16)
 
     def parse_events_batch(self, queries: list) -> list:
         """Event logs of a query batch, one launch: a list of int32 (n, 8)
@@ -348,51 +353,11 @@ class CudaRefIndex:
         return ev
 
 
-def state_from_jax(q_packed, dsz, refbuf_p, win, nrs, device, big=None):
-    """Carry the JAX engine's resident state over: numpy copies of
-    ``PallasAll2All.Q`` / ``.DSZ`` (one device's entries) and
-    ``PallasGroupIndex.refbuf_p`` / ``.win`` / ``.nrs`` become the port's
-    ``CudaAll2All.Q`` / ``.DSZ`` and ``GroupIndex`` tensors on `device`
-    (same layouts, byte for byte).
-
-    `big`, when given, is a list of ``PallasAll2All.build_big_index``
-    results as numpy arrays, one per reference: dicts with ``refbuf``
-    (1, LrP) int32, ``khi`` / ``klo`` (LrP,) int32 sorted key words,
-    ``pos`` (1, KaP) int32, ``win`` (1, WinP) int32 (its
-    ``gidx.win``) and ``nr``. They become one ``BigIndex`` under
-    ``"big"``: the key ``khi << 30 | klo`` (the JAX join's invalid
-    entry, khi = 2^30 and klo = 0, is the port's KEY_INVALID)."""
-    dev = torch.device(device)
-
-    def put(a, dtype):
-        return torch.from_numpy(np.array(a, dtype=dtype)).to(dev)
-
-    state = {"Q": put(q_packed, np.uint8), "DSZ": put(dsz, np.int32),
-             "refbuf_p": put(refbuf_p, np.uint8), "win": put(win, np.int32),
-             "nrs": put(nrs, np.int32)}
-    if big:
-        bidx = BigIndex.__new__(BigIndex)
-        bidx.G = len(big)
-        bidx.refbuf = put(np.concatenate([d["refbuf"] for d in big]),
-                          np.uint8)
-        bidx.LrP = bidx.refbuf.shape[1]
-        keys = np.stack([(np.asarray(d["khi"], np.int64) << 30)
-                         | np.asarray(d["klo"], np.int64) for d in big])
-        bidx.keys = put(keys, np.int64)
-        bidx.poslist = put(np.concatenate([d["pos"] for d in big]), np.int32)
-        bidx.KaP = bidx.poslist.shape[1]
-        bidx.win = put(np.concatenate([d["win"] for d in big]), np.int32)
-        bidx.WinP = bidx.win.shape[1]
-        bidx.nrs = put([d["nr"] for d in big], np.int32)
-        state["big"] = bidx
-    return state
-
-
 class CudaAll2All:
-    """All-vs-all group engine (counterpart of PallasAll2All, group path):
-    one resident query matrix per device, one dispatch per (group, query
-    block). Work units are independent; with several devices they are
-    round-robined (``device_for``)."""
+    """All-vs-all engine (counterpart of PallasAll2All): one resident query
+    matrix per device, each row routed (``paths``) to a device route
+    (``routes``) or the native engine, one dispatch per (group, query
+    block) of a route."""
 
     CNT_CAP = 112        # anchor-bucket count above which a row falls back
     EV_CAP = 2048        # events per pair; beyond -> native fallback
@@ -449,12 +414,10 @@ class CudaAll2All:
         #: events per long-genome pair (pallas_engine.py:2511)
         self.EV_CAP_BIG = max(self.EV_CAP, self.LqP // 32)
         self.G_big = self.B_big = 0         # set by big_launch_shape
-        # queries per dispatch. One warp per pair: a dispatch lasts about
-        # as long as its slowest pair, so 256 queries (1024 pairs) cost
-        # little more per launch than the JAX engine's 64: 28.17 vs 27.17
-        # ms at G = 4 on chip_smoke.py's 256-genome set, whose heaviest
-        # pair alone takes 25.7-26.3 ms (dispatch_probe.py; NVIDIA H100
-        # 80GB HBM3, 700.00 W; PERF.md)
+        # queries per dispatch: a dispatch lasts about as long as its
+        # slowest pair, so 256 cost little more than the JAX engine's 64
+        # (28.17 vs 27.17 ms at G = 4; dispatch_probe.py, NVIDIA H100 80GB
+        # HBM3, 700.00 W; PERF.md)
         self.B = min(256, _bucket(n, lo=8))
         n_pad = -(-n // self.B) * self.B
         qb = np.full((n_pad, self.LqP), SYM_N_SEQ, np.uint8)
@@ -471,20 +434,8 @@ class CudaAll2All:
         self.Q = {d: torch.from_numpy(qp_padded).to(d)
                   for d in dict.fromkeys(self.devices)}
         self.DSZ = {d: torch.from_numpy(dszs_pad).to(d) for d in self.Q}
-
-    def device_for(self, k: int):
-        """Device of work unit k: entry k % len(devices) (round-robin)."""
-        return self.devices[k % len(self.devices)]
-
-    def build_group_index(self, r_list, device=None,
-                          spans=OFF) -> GroupIndex:
-        """Device index of a reference group; r == -1 entries are cheap
-        dummy slots that pad the final group to G."""
-        dummy = np.zeros(16, np.uint8)
-        return GroupIndex([self.codes[r] if r >= 0 else dummy
-                           for r in r_list], self.params,
-                          device or self.devices[0],
-                          LrP=self.LrP_ref, KaP=self.KaP_ref, spans=spans)
+        #: the device routes by the path names of their rows (``row_path``)
+        self.routes = {"group": GroupRoute(self), "big": BigRoute(self)}
 
     def gather_qrows(self, idx, device=None):
         """Packed query rows and lengths of an arbitrary row set (the
@@ -493,38 +444,31 @@ class CudaAll2All:
         it = torch.as_tensor(np.asarray(idx, np.int64), device=dev)
         return self.Q[dev][it], self.DSZ[dev][it]
 
-    def group_args(self, gidx: GroupIndex, lo, device=None, qrows=None):
-        """Prep of a group dispatch: (the arguments of ``parse_events``
-        for the references of `gidx` x the B queries [lo, lo + B) or the
-        pre-gathered `qrows`, the (G, B) overflow flags)."""
-        dev = device or self.devices[0]
-        cfg, B = self.cfg, self.B
-        if qrows is None:
-            qrows = (self.Q[dev][lo:lo + B], self.DSZ[dev][lo:lo + B])
-        q_rows, dsz_b = qrows
-        qbuf, cand, next_hit, overflow = query_prep(
-            q_rows, dsz_b, gidx.ptab, self.LqP, cfg.mal, cfg.msl,
-            self.CNT_CAP)
-        return ((gidx.refbuf, qbuf, gidx.poslist, cand, next_hit, gidx.win,
-                 dsz_b.contiguous(), gidx.nrs, cfg, self.EV_CAP), overflow)
-
-    def dispatch_group(self, gidx: GroupIndex, lo, device=None, qrows=None,
-                       spans=OFF):
-        """Prep + kernel (``group_args``). Returns device tensors (ev, nev,
-        overflow); nothing is synchronised. `spans` records the prep and
-        the launch (``unit.prep`` / ``dev.prep``, ``unit.launch`` /
-        ``dev.kernel``)."""
-        with spans.span("unit.prep"), spans.stage("dev.prep"):
-            args, overflow = self.group_args(gidx, lo, device, qrows)
-        with spans.span("unit.launch"), spans.stage("dev.kernel"):
-            return (*parse_events(*args), overflow)
-
-    def collect_group(self, handles, spans=OFF):
-        """Download a dispatch -> out[g][b]: an (n, 8) int32 event log, or
-        None where the pair must be parsed natively (nev < 0, nev >
-        EV_CAP, or an anchor bucket over CNT_CAP in the query row)."""
-        ev, nev, overflow = handles
-        return _download_logs(ev, nev, self.EV_CAP, overflow, spans)
+    def plan(self, filter_csr=None, share: int = 1) -> Plan:
+        """The run's ``plan.Plan``: rows by ``paths``, each device route's
+        rows cut by its ``layout`` (the long-genome route's sizes its
+        launches for `share` processes, ``big_launch_shape``), in the
+        order of ``routes``; logs the routing."""
+        cfg, p = self.cfg, self.params
+        if self.all_big:
+            _warn(p, f"lz-ani-torch: {self.big_only_reason(self.LqP, cfg.mal)}"
+                  f"; every row takes the long-genome kernel")
+        rows, idle = route_rows(self.paths, filter_csr)
+        pl = Plan(rows, idle, {
+            name: route.layout(len(rows[name]), share, filter_csr is not None)
+            for name, route in self.routes.items() if rows.get(name)},
+            self.n_pad)
+        for r, _ in pl.native:
+            dsz = int(self.dszs[r])
+            _warn(p, f"lz-ani-torch: reference {r} ({dsz - cfg.mrd} bp): "
+                  f"composite of {2 * dsz + cfg.mrd} symbols exceeds "
+                  f"{self.MAX_BIG_SYMS}; row runs on the native engine")
+        for name, lay in pl.layouts.items():
+            route = self.routes[name]
+            _warn(p, f"lz-ani-torch: {route.label}: {len(rows[name])} rows, "
+                  f"{lay.G} references x {lay.width} queries per launch, "
+                  f"event cap {route.ev_cap}", 2)
+        return pl
 
     # ---- one reference x a query range (pallas_engine.py:2584-2647) -----
 
@@ -535,44 +479,37 @@ class CudaAll2All:
                           device or self.devices[0])
 
     def dispatch_range(self, r: int, lo: int, device=None, idx=None):
-        """Prep + kernel for reference r x the B queries [lo, lo + B):
-        device tensors (ev (B, EV_CAP + 1, 8), nev (B,), overflow (B,));
-        nothing is synchronised. `idx` is ``build_index(r)``, made here
-        when not given."""
+        """Prep + kernel for reference r x the B queries [lo, lo + B): (ev
+        (B, EV_CAP + 1, 8), nev (B,), overflow (B,)) on the device, not
+        synchronised; `idx` is ``build_index(r)``, made when not given."""
         dev = device or self.devices[0]
         if idx is None:
             idx = self.build_index(r, dev)
-        ev, nev, overflow = self.dispatch_group(idx, lo, dev)
+        ev, nev, overflow = self.routes["group"].dispatch(idx, [r], lo, dev)
         return ev[0], nev[0], overflow[0]
 
     def collect(self, handles):
         """Download a ``dispatch_range`` -> B event logs, None where the
-        pair must be parsed natively (as ``collect_group``)."""
+        pair must be parsed natively (as ``GroupRoute.collect``)."""
         ev, nev, overflow = handles
-        return self.collect_group((ev[None], nev[None], overflow[None]))[0]
+        return self.routes["group"].collect(
+            (ev[None], nev[None], overflow[None]))[0]
 
     def run_range(self, r: int, lo: int):
         return self.collect(self.dispatch_range(r, lo))
 
-    # ---- long-genome path ----------------------------------------------
+    # ---- long-genome launches ----------------------------------------------
 
     def big_launch_shape(self, n_big: int, device=None, share: int = 1):
         """Set and return (G_big, B_big): references and queries per
-        long-genome launch. The JAX package caps B_big at 4 to guard a TPU
-        watchdog; here both come from memory: the most pairs whose buffers
-        fit a quarter of the card's free memory (each entry keeps two
-        launches in flight), B_big a power of two <= B. Each pair is a
-        warp of its own, so a launch lasts about as long as its slowest
-        pair, and more pairs per launch cost little until the warps
-        outnumber what the SMs hold at once (the bacterial set's 48 pairs:
-        one launch of 1.7 ms of device time; dispatch_probe.py --big,
-        NVIDIA H100 80GB HBM3, 700.00 W).
-
-        Sized for `device`, or else for the tightest of the engine's
-        devices. A device's quarter is split among the entries that
-        repeat it and the `share` processes that drive it (each process
-        reads the free memory at its own start, so without the split two
-        processes on one card would each size for the whole of it)."""
+        long-genome launch (the JAX package caps B_big at 4 for a TPU
+        watchdog): the most pairs whose buffers fit a quarter of the free
+        memory of `device`, else of the tightest device, split among the
+        entries that repeat it and the `share` processes that drive it
+        (each reads the free memory at its own start); B_big a power of
+        two <= B. A launch lasts about as long as its slowest pair, a
+        warp's (the bacterial set's 48 pairs: 1.7 ms of device time;
+        dispatch_probe.py --big, NVIDIA H100 80GB HBM3, 700.00 W)."""
         budgets = []
         for dev in dict.fromkeys([torch.device(device)] if device is not None
                                  else self.devices):
@@ -598,57 +535,153 @@ class CudaAll2All:
         self.G_big, self.B_big = max(1, min(n_big, G)), B
         return self.G_big, self.B_big
 
-    def build_big_index(self, r_list, device=None, spans=OFF) -> BigIndex:
-        """Device index of a group of long-genome references (any G)."""
-        return BigIndex([self.codes[r] for r in r_list], self.params,
-                        device or self.devices[0], LrP=self.LrP_big,
-                        KaP=self.KaP_big, spans=spans)
 
-    def big_args(self, bidx: BigIndex, r_list, lo, device=None, spans=OFF):
+class _Route:
+    """A device route of ``CudaAll2All`` (``routes``): ``all2all_cuda``
+    and the hybrid drive each unit through it. ``layout`` (how its rows
+    are cut, ``plan.Layout``), ``build`` (a group's index on a device),
+    ``dispatch`` (a unit's prep and launch: the references `r_list` of
+    index `idx` x the queries [lo, lo + ``width``) or the gathered rows
+    `qidx`; device tensors (ev, nev[, overflow flags]), nothing
+    synchronised; `spans` records ``unit.prep`` / ``dev.prep`` and
+    ``unit.launch`` / ``dev.kernel``), ``collect`` (the download),
+    ``tally`` (its counters), ``replay_threads`` (a unit's replay's)."""
+
+    label = pairs_key = fallbacks_key = ""
+
+    def __init__(self, eng: CudaAll2All):
+        self.eng = eng
+
+    def collect(self, handles, spans=OFF) -> EventLogs:
+        """``EventLogs`` of a dispatch: a pair has no log, and is parsed
+        natively, where nev < 0, nev > ``ev_cap`` or its query row had an
+        anchor bucket over CNT_CAP (a group dispatch's overflow flags)."""
+        ev, nev, *overflow = handles
+        return _download_logs(ev, nev, self.ev_cap, *overflow, spans=spans)
+
+    def tally(self, st: dict, pr, pq, nev):
+        """Count a drained unit's pairs ((r, q) arrays `pr`, `pq`, log
+        lengths `nev`) in the stats `st`: those with a log, and those
+        without (nev < 0), each logged at -V 2; returns the latter's
+        indices."""
+        fb = np.flatnonzero(nev < 0)
+        for r, q in zip(pr[fb].tolist(), pq[fb].tolist()):
+            _warn(self.eng.params, f"lz-ani-torch: pair ({r},{q}) fell back "
+                  f"to the native engine (event/anchor capacity)", 2)
+        st[self.pairs_key] += len(nev) - len(fb)
+        st[self.fallbacks_key] += len(fb)
+        return fb
+
+
+class GroupRoute(_Route):
+    """The group route (``_get_group_step``): GROUP references a group,
+    the last padded with dummy slots, a ``GroupIndex``, B queries a unit
+    (a sparse filter's wanted queries gathered), the group kernel; a
+    unit is one of many, replayed on one thread."""
+
+    label, pairs_key, fallbacks_key = ("group path", "kernel_pairs",
+                                       "cap_fallbacks")
+    ev_cap = property(lambda self: self.eng.EV_CAP)
+    width = property(lambda self: self.eng.B)
+
+    def layout(self, n_rows, share=1, filtered=False) -> Layout:
+        return Layout(self.eng.GROUP, self.width, True, filtered)
+
+    def replay_threads(self, nthreads: int) -> int:
+        return 1
+
+    def build(self, r_list, device=None, spans=OFF) -> GroupIndex:
+        """r == -1 entries are cheap dummy slots."""
+        eng, dummy = self.eng, np.zeros(16, np.uint8)
+        return GroupIndex([eng.codes[r] if r >= 0 else dummy
+                           for r in r_list], eng.params,
+                          device or eng.devices[0],
+                          LrP=eng.LrP_ref, KaP=eng.KaP_ref, spans=spans)
+
+    def args(self, idx: GroupIndex, lo, device=None, qrows=None):
+        """Prep of a group dispatch: (the arguments of ``parse_events``
+        for the references of `idx` x the B queries [lo, lo + B) or the
+        pre-gathered `qrows`, the (G, B) overflow flags)."""
+        eng, dev = self.eng, device or self.eng.devices[0]
+        if qrows is None:
+            qrows = (eng.Q[dev][lo:lo + eng.B], eng.DSZ[dev][lo:lo + eng.B])
+        return group_kernel_args(idx, *qrows, eng.LqP, eng.cfg, eng.EV_CAP)
+
+    def dispatch(self, idx, r_list, lo, device=None, qidx=None, spans=OFF):
+        """`r_list` is unread: `idx` holds the group."""
+        qrows = None if qidx is None else self.eng.gather_qrows(qidx, device)
+        with spans.span("unit.prep"), spans.stage("dev.prep"):
+            args, overflow = self.args(idx, lo, device, qrows)
+        with spans.span("unit.launch"), spans.stage("dev.kernel"):
+            return (*parse_events(*args), overflow)
+
+
+class BigRoute(_Route):
+    """The long-genome route (``_get_big_step``): G_big references a group
+    (``big_launch_shape``), a ``BigIndex``, B_big queries a unit
+    (contiguous windows under a filter too, as the JAX engine does), the
+    long-genome kernel; a unit is a few megabase pairs, replayed while the
+    pool has little else to do, its references over every thread. Its
+    fallbacks' (r, q) are listed too (``big_fallback_pairs``)."""
+
+    label, pairs_key, fallbacks_key = ("long-genome path", "big_pairs",
+                                       "big_cap_fallbacks")
+    ev_cap = property(lambda self: self.eng.EV_CAP_BIG)
+    width = property(lambda self: self.eng.B_big)
+
+    def layout(self, n_rows, share=1, filtered=False) -> Layout:
+        G, B = self.eng.big_launch_shape(n_rows, share=share)
+        return Layout(G, B, False, False)
+
+    def replay_threads(self, nthreads: int) -> int:
+        return nthreads
+
+    def tally(self, st, pr, pq, nev):
+        fb = super().tally(st, pr, pq, nev)
+        st["big_fallback_pairs"] += np.stack([pr[fb], pq[fb]], 1).tolist()
+        return fb
+
+    def build(self, r_list, device=None, spans=OFF) -> BigIndex:
+        eng = self.eng
+        return BigIndex([eng.codes[r] for r in r_list], eng.params,
+                        device or eng.devices[0], LrP=eng.LrP_big,
+                        KaP=eng.KaP_big, spans=spans)
+
+    def args(self, idx: BigIndex, r_list, lo, device=None, spans=OFF):
         """Prep of a long-genome dispatch: the arguments of
-        ``parse_events_big`` for the references `r_list` of `bidx` x the
+        ``parse_events_big`` for the references `r_list` of `idx` x the
         B_big queries [lo, lo + B_big). The self pair gets dsz = msl, so a
         megabase self-parse never runs (pallas_engine.py:1888-1891), as do
         padding rows. `spans` records the prep's stages
         (``big_query_prep``)."""
-        dev = device or self.devices[0]
-        cfg, B = self.cfg, self.B_big
-        q = dev_unpack3(self.Q[dev][lo:lo + B], self.LqP)
+        eng = self.eng
+        dev = device or eng.devices[0]
+        cfg, B = eng.cfg, eng.B_big
+        q = dev_unpack3(eng.Q[dev][lo:lo + B], eng.LqP)
         rows = torch.arange(lo, lo + B, device=dev)
         refs = torch.as_tensor(list(r_list), device=dev)
         dsz = torch.where(rows[None] == refs[:, None], cfg.msl,
-                          self.DSZ[dev][lo:lo + B][None]).to(torch.int32)
-        cand, next_hit = big_query_prep(q, dsz, bidx.keys, cfg.mal, cfg.msl,
+                          eng.DSZ[dev][lo:lo + B][None]).to(torch.int32)
+        cand, next_hit = big_query_prep(q, dsz, idx.keys, cfg.mal, cfg.msl,
                                         spans)
-        return (bidx.refbuf, q.to(torch.uint8).contiguous(), bidx.poslist,
-                cand, next_hit, bidx.win, dsz.contiguous(), bidx.nrs, cfg,
-                self.EV_CAP_BIG)
+        return (idx.refbuf, q.to(torch.uint8).contiguous(), idx.poslist,
+                cand, next_hit, idx.win, dsz.contiguous(), idx.nrs, cfg,
+                eng.EV_CAP_BIG)
 
-    def dispatch_big(self, bidx: BigIndex, r_list, lo, device=None,
-                     spans=OFF):
-        """Prep + big kernel (``big_args``). Returns device tensors (ev,
-        nev); nothing is synchronised. `spans` as ``dispatch_group``."""
+    def dispatch(self, idx, r_list, lo, device=None, qidx=None, spans=OFF):
+        """`qidx` is None: the route's units are windows."""
         with spans.span("unit.prep"), spans.stage("dev.prep"):
-            args = self.big_args(bidx, r_list, lo, device, spans)
+            args = self.args(idx, r_list, lo, device, spans)
         with spans.span("unit.launch"), spans.stage("dev.kernel"):
             return parse_events_big(*args)
 
-    def collect_big(self, handles, spans=OFF):
-        """Download a long-genome dispatch -> out[g][b]: an event log, or
-        None where the pair must be parsed natively (nev < 0 or nev >
-        EV_CAP_BIG: a capacity fallback)."""
-        ev, nev = handles
-        return _download_logs(ev, nev, self.EV_CAP_BIG, spans=spans)
-
 
 class EventLogs:
-    """A downloaded dispatch's event logs, compacted: `ev`, the (N, 8)
-    int32 host block of every kept log's records back to back, `nev`,
-    the (G, B) int32 log lengths, -1 where the pair has no log and is
-    parsed natively, `off`, the (G, B) int64 first record of each log
-    in `ev`, and `sync_s`, the host seconds the download waited for the
-    device before its copy. ``logs[g][b]`` is pair (g, b)'s (n, 8) log,
-    or None."""
+    """A downloaded dispatch's event logs, compacted: `ev` (N, 8) int32,
+    the kept logs' records back to back; `nev` (G, B) int32 log lengths,
+    -1 for a pair without a log (parsed natively); `off` (G, B) int64,
+    each log's first record in `ev`; `sync_s`, the host seconds the
+    download waited for the device. ``logs[g][b]``: a log or None."""
 
     __slots__ = ("ev", "nev", "off", "sync_s")
 
@@ -671,16 +704,12 @@ class EventLogs:
 def _download_logs(ev, nev, cap, overflow=None, spans=OFF) -> EventLogs:
     """``EventLogs`` of a dispatch's (ev, nev): a pair keeps its first nev
     records, and has no log where nev < 0, nev > cap or `overflow[g, b]`
-    is set. The kept records are gathered densely on the device first,
-    so the copy moves the sum of the kept logs' lengths, not G x B times
-    the longest.
-
-    `spans` (``spans.UnitSpans``) splits the sync in two: on a card the
-    host first waits for the unit's own kernel (``unit.sync_own``), then
-    the copy of the lengths waits for the work queued after it
-    (``unit.sync_ahead``; the whole sync on the CPU). It also records
-    the gather's device time (``dev.compact``) and the host's gather and
-    copy (``unit.copy``)."""
+    is set. The kept records are gathered densely on the device first, so
+    the copy moves the kept logs' lengths, not G x B times the longest.
+    `spans` splits the sync: on a card the wait for the unit's own kernel
+    (``unit.sync_own``), then for the work queued after it
+    (``unit.sync_ahead``; all of it on the CPU); and records the gather
+    (``dev.compact``) and the host's gather and copy (``unit.copy``)."""
     G, B, width = ev.shape[:3]
     keep = (nev >= 0) & (nev <= cap)
     if overflow is not None:
@@ -710,90 +739,44 @@ def _download_logs(ev, nev, cap, overflow=None, spans=OFF) -> EventLogs:
     return EventLogs(block, nev_h, off.reshape(G, B), t1 - t0)
 
 
-# ---------------------------------------------------------------------------
-# all-vs-all
-# ---------------------------------------------------------------------------
+# ---- all-vs-all ------------------------------------------------------------
 
 def all2all_cuda(codes, params, filter_csr=None, progress=None,
                  replay_threads: int = 0, region_path: str | None = None,
                  device=None, stats: dict | None = None, devices=None,
                  card_share: int = 1):
-    """All-vs-all triples through the CUDA engine; layout matches
-    ``native_engine.all2all`` (dense (n, n-1, 3), or (nnz, 3) aligned to
-    the filter CSR). `device` defaults to the current CUDA device; a CPU
-    device runs the kernels' plain versions (tests).
+    """All-vs-all triples through the CUDA engine, laid out as
+    ``native_engine.all2all``'s. `device`: the current CUDA device by
+    default, a CPU device runs the plain versions (tests); or `devices`,
+    entries (repeats allowed) that units go round-robin over, two in
+    flight and one live index each. `card_share` processes drive the
+    card (``big_launch_shape``). Each downloaded unit is replayed by one
+    native call on a pool of `replay_threads` (all cores but one).
 
-    `devices`, in place of `device`, is a list of device entries: work
-    units go round-robin over the entries (``CudaAll2All.device_for``),
-    and each entry keeps two units in flight and one live reference
-    index. Entries may repeat a device (``["cpu", "cpu"]`` in the tests,
-    two entries on one card). `card_share` is the number of processes
-    that drive the same card (``big_launch_shape``).
+    `stats` receives kernel_pairs / big_pairs (pairs replayed from a
+    group / long-genome log), cap_fallbacks / big_cap_fallbacks (pairs
+    without a log: over EV_CAP / EV_CAP_BIG events, or an anchor bucket
+    over CNT_CAP in the row) and big_fallback_pairs (their (r, q)),
+    native_rows / native_row_pairs, big_rows, G_big / B_big (a
+    long-genome launch), replay_mismatches, dispatches, launches /
+    big_launches, device_units (per entry), and host clocks: setup_s
+    (entry to the first dispatch), dispatch_s (index builds, dispatches)
+    and of it win_s (WIN words), download_s and of it download_sync_s
+    (the wait for the device, on one stream the next unit's prep and
+    kernel too), replay_tail_s (the pool after the last download),
+    replay_c_s (inside the replay calls, over threads), replay_wall_s
+    (first replay submitted to last finished), replay_pairs; while a torch
+    profiler records at entry, ``spans`` (``ops/spans.py``, PERF.md section 3:
+    ``engine.*``, each unit's ``unit.*`` and, on a card, ``dev.*``).
 
-    Rows are routed as the JAX package routes them (``row_path``): the
-    group path, the long-genome path, or (composites above MAX_BIG_SYMS)
-    the native engine, logged.
-
-    `stats`, when given, receives: kernel_pairs / big_pairs (pairs
-    replayed from a group / long-genome kernel log), cap_fallbacks (group
-    pairs whose log exceeded EV_CAP or whose row had an anchor bucket over
-    CNT_CAP), big_cap_fallbacks and big_fallback_pairs (long-genome pairs
-    whose log exceeded EV_CAP_BIG, and their (r, q)), native_rows and
-    native_row_pairs (rows routed to the native engine), big_rows,
-    G_big and B_big (references and queries per long-genome launch),
-    replay_mismatches (logs the replay rejected), dispatches,
-    launches / big_launches (kernel launches of each path),
-    device_units (the units each device entry ran), and the host clocks
-    of the run: setup_s (entry to the first dispatch), dispatch_s and
-    download_s (the main thread's seconds in index builds and
-    dispatches, and in downloads, the sync included), win_s (of
-    dispatch_s, the index builds' WIN words), download_sync_s
-    (of download_s, the sync: the wait for the device, which on the one
-    stream also covers the next unit's prep and kernel), replay_tail_s
-    (its wait for the replay pool after the last download), replay_c_s
-    (the seconds inside the native replay calls, summed over the pool's
-    threads), replay_wall_s (first replay task submitted to last one
-    finished) and replay_pairs (pairs replayed or parsed by the pool).
-
-    When a torch profiler is recording at entry, `stats` also receives
-    ``spans``: the call's spans (``ops/spans.py``; PERF.md names them
-    and the metrics that read them). Host spans: ``engine.setup`` (entry
-    to the first dispatch), ``engine.loop`` (from there to the end of
-    the last download), ``engine.replay_tail``; per unit ``unit.index``
-    (an index build), ``unit.prep``, ``unit.launch``, ``unit.sync_own``
-    (on a card: the wait for the unit's own kernel), ``unit.sync_ahead``
-    (the rest of its sync), ``unit.copy`` (the gather and copy of the
-    kept records), and on a pool thread ``unit.queue`` (submission to
-    the start of its replay) and ``unit.replay`` (its native replay
-    call). On a card, per unit, the device spans ``dev.join``,
-    ``dev.prep``, ``dev.kernel`` and ``dev.compact``, on the host's
-    clock, and on the long-genome path their stages inside ``dev.join``
-    and ``dev.prep``: ``dev.kmers``, ``dev.sort``, ``dev.search`` and
-    ``dev.next_hit`` (``ops/big.py``). Without them no event, sync or
-    list is added.
-
-    Each downloaded unit is replayed by one native call
-    (``finalize.UnitReplay``) on a pool of `replay_threads` threads (all
-    cores but one by default), which run in parallel: the call releases
-    the interpreter lock. A long-genome unit's call spreads its
-    references over that many native threads.
-
-    Raises RuntimeError after the run when any kernel log failed the
-    replay's cross-check: the kernel computed a wrong stream, and those
-    pairs' outputs are not written.
+    Raises RuntimeError after the run when a kernel log failed the
+    replay's cross-check (a wrong stream; those pairs are not written).
     """
     from . import parse_kernel
 
     t_entry = time.perf_counter()
     sp = Spans() if requested() else None
-    verbosity = getattr(params, "verbosity_level", 1)
-
-    def _warn(msg, level=1):
-        if verbosity >= level:
-            print(msg, file=sys.stderr)
-
     n = len(codes)
-    cfg = ParseCfg.from_params(params)
     launches0 = parse_kernel.parse_events.launches
     big_launches0 = parse_kernel.parse_events_big.launches
     st = dict(kernel_pairs=0, cap_fallbacks=0, big_pairs=0,
@@ -810,9 +793,9 @@ def all2all_cuda(codes, params, filter_csr=None, progress=None,
 
     reason = device_envelope_reason(params)
     if reason is not None:
-        _warn(f"lz-ani-torch: parameters outside the CUDA kernel envelope "
-              f"({reason}); this run uses the native engine (byte-identical "
-              f"output)")
+        _warn(params, f"lz-ani-torch: parameters outside the CUDA kernel "
+              f"envelope ({reason}); this run uses the native engine "
+              f"(byte-identical output)")
         out = native_engine.all2all(codes, params, filter_csr=filter_csr,
                                     region_path=region_path)
         if stats is not None:
@@ -820,156 +803,52 @@ def all2all_cuda(codes, params, filter_csr=None, progress=None,
                 n * (n - 1) if filter_csr is None else len(filter_csr[1])))
         return out
 
-    if devices is None:
-        if device is None:
-            if not torch.cuda.is_available():
-                raise RuntimeError("all2all_cuda: no CUDA device")
-            device = torch.device("cuda", torch.cuda.current_device())
-        devices = [device]
-    elif device is not None or not devices:
-        raise ValueError("all2all_cuda: give `device` or a non-empty "
-                         "`devices`, not both")
-    devices = [torch.device(d) for d in devices]
+    devices = _entries(device, devices)
     st["device_units"] = [0] * len(devices)
-
-    if filter_csr is None:
-        out = np.zeros((n, max(n - 1, 0), 3), dtype=np.int32)
-    else:
-        indptr, ids = filter_csr
-        out = np.zeros((len(ids), 3), dtype=np.int32)
-
-    eng = (CudaAll2All(codes, params, devices=devices,
-                       shape=query_shape(codes, cfg.mrd)) if n else None)
-    if n and eng.all_big:
-        why = eng.big_only_reason(eng.LqP, cfg.mal)
-        _warn(f"lz-ani-torch: {why}; every row takes the long-genome "
-              f"kernel")
-    rows = {"group": [], "big": [], "native": []}
-    idle_rows = 0   # rows with no pair to compute (another process's)
-    for r in range(n):
-        qs, slots = row_wanted(r, n, filter_csr)
-        if not len(qs):
-            idle_rows += 1
-            continue
-        if eng.paths[r] == "native":
-            _warn(f"lz-ani-torch: reference {r} ({int(eng.dszs[r]) - cfg.mrd}"
-                  f" bp): composite of {2 * int(eng.dszs[r]) + cfg.mrd} "
-                  f"symbols exceeds {CudaAll2All.MAX_BIG_SYMS}; row runs on "
-                  f"the native engine")
-        rows[eng.paths[r]].append((r, (qs, slots)))
-
-    # groups: (kind, r_list, wanteds). Group-path groups are padded to G
-    # with dummy references (r = -1); long-genome groups are not
-    groups = []
-    G = CudaAll2All.GROUP
-    for i0 in range(0, len(rows["group"]), G):
-        chunk = rows["group"][i0:i0 + G]
-        pad = G - len(chunk)
-        groups.append(("group", [r for r, _ in chunk] + [-1] * pad,
-                       [w for _, w in chunk] + [NO_PAIRS] * pad))
-    if rows["big"]:
-        G_big, B_big = eng.big_launch_shape(len(rows["big"]),
-                                            share=card_share)
-        st.update(G_big=G_big, B_big=B_big)
-        _warn(f"lz-ani-torch: long-genome path: {len(rows['big'])} rows, "
-              f"{G_big} references x {B_big} queries per launch, event cap "
-              f"{eng.EV_CAP_BIG}", level=2)
-        for i0 in range(0, len(rows["big"]), G_big):
-            chunk = rows["big"][i0:i0 + G_big]
-            groups.append(("big", [r for r, _ in chunk],
-                           [w for _, w in chunk]))
-
-    # units: (gi, lo, gathered query rows or None, pairs (g, r, q, slot, b))
-    units = []
-    for gi, (kind, r_list, wanteds) in enumerate(groups):
-        if kind == "big" or filter_csr is None:
-            # contiguous query windows (the long-genome path uses them
-            # under a filter too, as the JAX engine does)
-            width = eng.B_big if kind == "big" else eng.B
-            for lo in range(0, eng.n_pad, width):
-                pairs = unit_pairs(r_list, wanteds, lambda qs: (
-                    (qs >= lo) & (qs < lo + width), qs - lo))
-                if len(pairs[0]):
-                    units.append((gi, lo, None, pairs))
-        else:
-            # sparse filter: dispatch the group's wanted queries gathered
-            # densely (pallas_engine.py:1545-1560)
-            uq = np.unique(np.concatenate([qs for qs, _ in wanteds]))
-            for c0 in range(0, len(uq), eng.B):
-                chunk = uq[c0:c0 + eng.B]
-                idx = np.full(eng.B, chunk[-1], np.int64)
-                idx[:len(chunk)] = chunk
-                pairs = unit_pairs(r_list, wanteds, lambda qs: (
-                    np.isin(qs, chunk), np.searchsorted(chunk, qs)))
-                units.append((gi, None, idx, pairs))
-
-    # the Sequences% counter: a reference row counts when its last unit
-    # drains (pallas_engine.py:1575-1580); rows without units count now,
-    # those with no pair at all too
-    group_rem = [0] * len(groups)
-    for gi, _, _, _ in units:
-        group_rem[gi] += 1
-    group_nreal = [sum(r >= 0 for r in rl) for _, rl, _ in groups]
-    total_pairs = (sum(len(u[3][0]) for u in units)
-                   + sum(len(w[0]) for _, w in rows["native"]))
-    seqs_done = idle_rows + sum(group_nreal[gi] for gi in range(len(groups))
-                                if group_rem[gi] == 0)
+    out = np.zeros((n, max(n - 1, 0), 3) if filter_csr is None
+                   else (len(filter_csr[1]), 3), dtype=np.int32)
+    pl, eng = Plan({}, 0, {}, 0), None      # no rows: no engine, no plan
+    if n:
+        eng = CudaAll2All(codes, params, devices=devices, shape=query_shape(
+            codes, ParseCfg.from_params(params).mrd))
+        pl = eng.plan(filter_csr, card_share)
+        st.update(big_rows=len(pl.rows.get("big", ())), G_big=eng.G_big,
+                  B_big=eng.B_big)
 
     nthreads = replay_threads or max(2, (os.cpu_count() or 2) - 1)
     rf = open(region_path, "wb") if region_path else None
+    done = [0, pl.seqs_done]        # pairs drained, rows done (Sequences%)
     try:
         rep = UnitReplay(codes, params, out, rf)
-        done_pairs = 0
         with ThreadPoolExecutor(max_workers=nthreads) as pool:
-            futs = []
             # native rows first: the pool works on them while the device
             # runs the kernel units
-            for r, (qs, slots) in rows["native"]:
-                futs.append(pool.submit(rep.parse_row, r, qs, slots))
-                st["native_row_pairs"] += len(qs)
-            st["native_rows"] = len(rows["native"])
-            st["big_rows"] = len(rows["big"])
+            futs = [pool.submit(rep.parse_row, r, *w) for r, w in pl.native]
+            st["native_rows"] = len(pl.native)
+            st["native_row_pairs"] = sum(len(w[0]) for _, w in pl.native)
 
-            def drain(unit, handles, us):
-                nonlocal done_pairs, seqs_done
-                gi, _, _, (pg, pr, pq, pslot, pb) = unit
-                big = groups[gi][0] == "big"
+            def drain(unit, route, handles, us):
+                pg, pr, pq, pslot, pb = unit.pairs
                 t0 = time.perf_counter()
-                logs = (eng.collect_big(handles, us) if big
-                        else eng.collect_group(handles, us))
+                logs = route.collect(handles, us)
                 st["download_s"] += time.perf_counter() - t0
                 st["download_sync_s"] += logs.sync_s
                 us.resolve()
                 nev = logs.nev[pg, pb]
-                fb = np.flatnonzero(nev < 0)
-                for r, q in zip(pr[fb].tolist(), pq[fb].tolist()):
-                    if big:
-                        st["big_fallback_pairs"].append([r, q])
-                    _warn(f"lz-ani-torch: pair ({r},{q}) fell back to the "
-                          f"native engine (event/anchor capacity)", level=2)
-                st["big_cap_fallbacks" if big else "cap_fallbacks"] += len(fb)
-                st["big_pairs" if big else "kernel_pairs"] += len(nev) - len(fb)
-                # a long-genome unit is a few megabase pairs, replayed
-                # while the pool has little else to do: its references go
-                # to several threads; a group unit is one of many, one
-                # thread each
-                futs.append(rep.submit(pool, pr, pq, pslot, nev,
-                                       logs.offsets(pg, pb), logs.ev,
-                                       threads=nthreads if big else 1,
-                                       queued=us.queue,
-                                       replayed=us.replay))
-                done_pairs += len(pr)
-                group_rem[gi] -= 1
-                if group_rem[gi] == 0:
-                    seqs_done += group_nreal[gi]
+                route.tally(st, pr, pq, nev)
+                futs.append(rep.submit(
+                    pool, pr, pq, pslot, nev, logs.offsets(pg, pb), logs.ev,
+                    threads=route.replay_threads(nthreads), queued=us.queue,
+                    replayed=us.replay))
+                done[0] += len(pr)
+                done[1] += pl.drained(unit.group)
                 if progress is not None:
-                    progress(done_pairs, total_pairs, seqs_done, n)
+                    progress(done[0], pl.total_pairs, done[1], n)
 
             # depth-2 pipeline per device entry: unit k + len(devices) is
             # queued before unit k's logs are downloaded and handed to the
-            # replay pool. Units go round-robin over the entries, and each
-            # entry keeps one live index (a group's units are consecutive)
-            n_ent = len(devices)
+            # replay pool. Each entry keeps one live index (a group's units
+            # are consecutive)
             inflight = []
             live = {}    # entry -> (group, its index on the entry's device)
             t_loop = time.perf_counter()
@@ -977,33 +856,25 @@ def all2all_cuda(codes, params, filter_csr=None, progress=None,
             if sp is not None:
                 sp.host("engine.setup", None, t_entry, t_loop)
                 sp.anchor(devices)
-            for k, unit in enumerate(units):
-                gi, lo, qidx, _ = unit
-                kind, r_list, _ = groups[gi]
+            for k, unit in enumerate(pl.units):
+                grp, e = pl.groups[unit.group], k % len(devices)
+                route = eng.routes[grp.route]
                 t0 = time.perf_counter()
-                e, dev = k % n_ent, eng.device_for(k)
-                us = OFF if sp is None else UnitSpans(sp, k, dev)
-                if live.get(e, (None,))[0] != gi:
-                    live.pop(e, None)            # free the previous index
-                    live[e] = (gi, eng.build_big_index(r_list, dev, us)
-                               if kind == "big"
-                               else eng.build_group_index(r_list, dev, us))
+                us = OFF if sp is None else UnitSpans(sp, k, devices[e])
+                if live.get(e, (None,))[0] != unit.group:
+                    live.pop(e, None)    # freed once `idx` moves on
+                    live[e] = (unit.group,
+                               route.build(grp.r_list, devices[e], us))
                     us.host("unit.index", t0)
                     st["win_s"] += live[e][1].win_s
                 idx = live[e][1]
-                if kind == "big":
-                    handles = eng.dispatch_big(idx, r_list, lo, dev, us)
-                elif qidx is not None:
-                    handles = eng.dispatch_group(
-                        idx, None, dev, qrows=eng.gather_qrows(qidx, dev),
-                        spans=us)
-                else:
-                    handles = eng.dispatch_group(idx, lo, dev, spans=us)
+                handles = route.dispatch(idx, grp.r_list, unit.lo, devices[e],
+                                         unit.qidx, us)
                 st["dispatch_s"] += time.perf_counter() - t0
                 st["dispatches"] += 1
                 st["device_units"][e] += 1
-                inflight.append((unit, handles, us))
-                if len(inflight) >= 2 * n_ent:
+                inflight.append((unit, route, handles, us))
+                if len(inflight) >= 2 * len(devices):
                     drain(*inflight.pop(0))
             while inflight:
                 drain(*inflight.pop(0))
@@ -1016,20 +887,22 @@ def all2all_cuda(codes, params, filter_csr=None, progress=None,
                 sp.host("engine.loop", None, t_loop, t0)
                 sp.host("engine.replay_tail", None, t0, t1)
         if progress is not None:
-            progress(total_pairs, total_pairs, n, n)
+            progress(pl.total_pairs, pl.total_pairs, n, n)
     finally:
         if rf is not None:
             rf.close()
 
     st.update(replay_mismatches=rep.replay_mismatches,
               replay_c_s=rep.c_s, replay_wall_s=rep.wall_s,
-              replay_pairs=rep.pairs)
-    st["launches"] = parse_kernel.parse_events.launches - launches0
-    st["big_launches"] = parse_kernel.parse_events_big.launches - big_launches0
+              replay_pairs=rep.pairs,
+              launches=parse_kernel.parse_events.launches - launches0,
+              big_launches=(parse_kernel.parse_events_big.launches
+                            - big_launches0))
     fallbacks = st["cap_fallbacks"] + st["big_cap_fallbacks"]
     if fallbacks:
-        _warn(f"lz-ani-torch: {fallbacks}/{total_pairs} pairs fell back to "
-              f"the native engine (event-buffer or anchor-bucket capacity)")
+        _warn(params, f"lz-ani-torch: {fallbacks}/{pl.total_pairs} pairs fell "
+              f"back to the native engine (event-buffer or anchor-bucket "
+              f"capacity)")
     if stats is not None:
         stats.update(st)
     if st["replay_mismatches"]:

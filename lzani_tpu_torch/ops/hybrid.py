@@ -29,6 +29,10 @@ Where it differs from the JAX function:
     ``warm_why = "envelope: ..."`` and the native pool owns the run.
   * After a device failure the host re-runs only the claimed pairs that
     no replay task took, so no region record is written twice.
+  * A claimed group is cut into units as ``all2all_cuda`` cuts its
+    groups (``plan.group_units``): under a sparse filter its wanted
+    queries are gathered densely, where the JAX function dispatches
+    contiguous windows.
 """
 
 from __future__ import annotations
@@ -46,7 +50,8 @@ import numpy as np
 
 from ..core import native_engine
 from ..utils import cudadev
-from .finalize import NO_PAIRS, UnitReplay, row_wanted, unit_pairs
+from .finalize import UnitReplay, row_wanted
+from .plan import cut_groups, group_units
 
 # ---- warm-thread lifecycle -------------------------------------------------
 # A warm-up thread still inside torch's import, the engine's construction
@@ -300,8 +305,8 @@ def all2all_hybrid(codes, params, filter_csr=None, progress=None,
                               initializer=_thread_idle_priority)
     pending = []
     drain_futs = []
-    inflight = deque()   # (r_list, (subs, lo), handles, t_dispatch, ...)
-    unit_q = deque()     # (r_list, lo, subs, index future, device, ...)
+    inflight = deque()   # (r_list, pairs, handles, t_dispatch, ...)
+    unit_q = deque()     # (r_list, lo, qidx, pairs, index future, ...)
     # steady-state device unit service time: EMA of drain-to-drain
     # intervals (pipeline-aware, unlike per-dispatch wall time)
     t_group = [None]
@@ -371,9 +376,11 @@ def all2all_hybrid(codes, params, filter_csr=None, progress=None,
                 parse_kernel.load()      # nvcc at first use
                 if warm_state.get("cancel"):
                     return _stop("cancelled-after-build")
-            gi = e.build_group_index([-1] * GROUP, dev)
+            route = e.routes["group"]
+            dummies = [-1] * GROUP
+            gi = route.build(dummies, dev)
             t0 = time.perf_counter()
-            e.collect_group(e.dispatch_group(gi, 0, dev))
+            route.collect(route.dispatch(gi, dummies, 0, dev))
             warm_state["s"] = time.perf_counter() - t0
             eng = e
             warm_state["ok"] = True
@@ -390,7 +397,7 @@ def all2all_hybrid(codes, params, filter_csr=None, progress=None,
         nonlocal device_pairs, cap_fallbacks, download_s
         pg, pr, pq, pslot, pb = pairs
         t0 = time.perf_counter()
-        logs = eng.collect_group(handles)
+        logs = eng.routes["group"].collect(handles)
         dt = time.perf_counter() - t0
         nev = logs.nev[pg, pb]
         pending.append(rep.submit(pool, pr, pq, pslot, nev,
@@ -569,24 +576,21 @@ def all2all_hybrid(codes, params, filter_csr=None, progress=None,
                             dev_rows[0] += len(idle)
                     if not on_dev:
                         continue
-                    r_list = on_dev + [-1] * (GROUP - len(on_dev))
+                    route = eng.routes["group"]
+                    _, r_list, wanteds = cut_groups(
+                        "group", [(r, wanted_of(r)) for r in on_dev],
+                        GROUP, pad=True)[0]
                     ent = k_claim % len(devices)
                     k_claim += 1
-                    gf = pool.submit(eng.build_group_index, r_list,
-                                     eng.devices[ent])
-                    wanteds = [wanted_of(r) if r >= 0 else NO_PAIRS
-                               for r in r_list]
+                    gf = pool.submit(route.build, r_list, eng.devices[ent])
                     dev_claimed += sum(len(w[0]) for w in wanteds)
-                    g_units = []
-                    for lo in range(0, eng.n_pad, eng.B):
-                        pairs = unit_pairs(r_list, wanteds, lambda qs: (
-                            (qs >= lo) & (qs < lo + eng.B), qs - lo))
-                        if len(pairs[0]):
-                            g_units.append((lo, pairs))
+                    # the units all2all_cuda would cut from this group
+                    g_units = group_units(r_list, wanteds, route.width,
+                                          eng.n_pad, filter_csr is not None)
                     urem = [len(g_units)]   # rows count at the last drain
-                    for lo, pairs in g_units:
-                        unit_q.append((r_list, lo, pairs, gf, ent, urem,
-                                       len(on_dev)))
+                    for lo, qidx, pairs in g_units:
+                        unit_q.append((r_list, lo, qidx, pairs, gf, ent,
+                                       urem, len(on_dev)))
                 if not unit_q and not inflight:
                     if done_claiming:
                         break
@@ -599,10 +603,11 @@ def all2all_hybrid(codes, params, filter_csr=None, progress=None,
                     continue
                 if unit_q:
                     current = unit_q.popleft()
-                    r_list, lo, pairs, gf, ent, urem, nrows = current
+                    r_list, lo, qidx, pairs, gf, ent, urem, nrows = current
                     idx = gf.result()
                     t_disp = time.perf_counter()
-                    handles = eng.dispatch_group(idx, lo, eng.devices[ent])
+                    handles = eng.routes["group"].dispatch(
+                        idx, r_list, lo, eng.devices[ent], qidx)
                     inflight.append((r_list, pairs, handles, t_disp,
                                      urem, nrows))
                     current = None

@@ -1,5 +1,5 @@
 """What the port's measurement scripts print beside their numbers
-(``chip_smoke.py``, ``ab_cli.py``, ``dispatch_probe.py``): the card, the
+(``chip_smoke.py``, ``dispatch_probe.py``): the card, the
 CLI's phase timings and engine counters, and the bounds of a parse
 launch and of a fold launch."""
 

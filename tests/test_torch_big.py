@@ -21,6 +21,8 @@ from lzani_tpu_torch.ops import cuda_engine as tce
 from lzani_tpu_torch.ops.parse_kernel import parse_events_big
 from lzani_tpu_torch.synth import mutate
 
+from jax_state import state_from_jax
+
 CPU = torch.device("cpu")
 
 
@@ -57,10 +59,11 @@ def _family(seed, length=1500):
 
 def _big_logs(eng, r_list):
     """{(r, q): log or None} of every pair of one long-genome group."""
-    bidx = eng.build_big_index(r_list, CPU)
+    route = eng.routes["big"]
+    bidx = route.build(r_list, CPU)
     out = {}
     for lo in range(0, eng.n_pad, eng.B_big):
-        logs = eng.collect_big(eng.dispatch_big(bidx, r_list, lo, CPU))
+        logs = route.collect(route.dispatch(bidx, r_list, lo, CPU))
         for g, r in enumerate(r_list):
             for b in range(eng.B_big):
                 if lo + b < len(eng.codes):
@@ -84,7 +87,7 @@ def test_prep_matches_jax(mal):
     assert eng.all_big and set(eng.paths) == {"big"}
     eng.big_launch_shape(len(codes), CPU)
     r_list = [0, 5]
-    bidx = eng.build_big_index(r_list, CPU)
+    bidx = eng.routes["big"].build(r_list, CPU)
     q = tce.dev_unpack3(eng.Q[CPU][:eng.B_big], eng.LqP)
     hi, lo, ok = tbig.dev_kmer_stream2(q, mal)
     jhi, jlo, jok = jpe.dev_kmer_stream2(jnp.asarray(q.numpy()), mal)
@@ -246,17 +249,17 @@ def test_state_from_jax_big_index_gives_the_same_logs():
                         pos=np.asarray(d["pos"]),
                         win=np.asarray(d["gidx"].win), nr=d["nr"]))
     jg = jeng.build_group_index([0])
-    st = tce.state_from_jax(np.asarray(jeng.Q[None]),
-                            np.asarray(jeng.DSZ[None]),
-                            np.asarray(jg.refbuf_p), np.asarray(jg.win),
-                            np.asarray(jg.nrs), CPU, big=big)
+    st = state_from_jax(np.asarray(jeng.Q[None]), np.asarray(jeng.DSZ[None]),
+                        np.asarray(jg.refbuf_p), np.asarray(jg.win),
+                        np.asarray(jg.nrs), CPU, big=big)
     eng = tce.CudaAll2All(codes, p, devices=[CPU])
     eng.big_launch_shape(2, CPU)
-    mine = eng.build_big_index([0, 2], CPU)
+    route = eng.routes["big"]
+    mine = route.build([0, 2], CPU)
     for name in ("refbuf", "keys", "poslist", "win", "nrs"):
         assert torch.equal(getattr(st["big"], name), getattr(mine, name)), name
-    a = eng.collect_big(eng.dispatch_big(st["big"], [0, 2], 0, CPU))
-    b = eng.collect_big(eng.dispatch_big(mine, [0, 2], 0, CPU))
+    a = route.collect(route.dispatch(st["big"], [0, 2], 0, CPU))
+    b = route.collect(route.dispatch(mine, [0, 2], 0, CPU))
     for g in range(2):
         for q in range(len(codes)):
             assert np.array_equal(a[g][q], b[g][q]), (g, q)
@@ -269,8 +272,8 @@ def test_big_wrapper_rejects_bad_inputs():
     p = _params(20, 11)
     eng = tce.CudaAll2All(codes, p, devices=[CPU])
     eng.big_launch_shape(2, CPU)
-    args = list(eng.big_args(eng.build_big_index([0, 1], CPU), [0, 1], 0,
-                             CPU))
+    route = eng.routes["big"]
+    args = list(route.args(route.build([0, 1], CPU), [0, 1], 0, CPU))
     parse_events_big(*args)
     for k, bad in ((3, args[3][:, :, 0].contiguous()),
                    (6, args[6][0].contiguous()),

@@ -124,8 +124,8 @@ def big_launch(name, device):
     r_list = list(range(len(codes))) if r_list is None else r_list
     eng.big_launch_shape(len(r_list), device)
     assert eng.B_big >= len(codes)
-    args = eng.big_args(eng.build_big_index(r_list, device), r_list, 0,
-                        device)
+    route = eng.routes["big"]
+    args = route.args(route.build(r_list, device), r_list, 0, device)
     if name == "self_padding":
         args = poison(args)
     return codes, p, r_list, args
@@ -205,7 +205,8 @@ def test_poisoned_no_op_pairs_change_no_log():
     codes, p, r_list, args, (ev, nev) = _plain("self_padding")
     eng = tce.CudaAll2All(codes, p, devices=[CPU])
     eng.big_launch_shape(len(codes), CPU)
-    clean = eng.big_args(eng.build_big_index(r_list, CPU), r_list, 0, CPU)
+    route = eng.routes["big"]
+    clean = route.args(route.build(r_list, CPU), r_list, 0, CPU)
     ev2, nev2 = pk.parse_events_big_plain(*clean)
     assert torch.equal(nev, nev2)
     for g in range(nev.shape[0]):

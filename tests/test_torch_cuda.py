@@ -66,7 +66,7 @@ def dev():
 
 def _group_args(codes, params, r_list, dev):
     eng = tce.CudaAll2All(codes, params, devices=[dev])
-    gi = eng.build_group_index(r_list, dev)
+    gi = eng.routes["group"].build(r_list, dev)
     q_rows, dsz = eng.Q[dev][:eng.B], eng.DSZ[dev][:eng.B]
     qbuf, cand, nh, ovf = tce.query_prep(q_rows, dsz, gi.ptab, eng.LqP,
                                          params.min_anchor_len,
@@ -95,7 +95,7 @@ def test_kernel_matches_plain_and_oracle(dev, params):
     eng, args, ovf = _group_args(codes, p, [0, 1, 2, 3], dev)
     out = parse_events(*args, ev_cap=eng.EV_CAP)
     _assert_same_logs(out, parse_events_plain(*args, ev_cap=eng.EV_CAP))
-    logs = eng.collect_group((*out, ovf))
+    logs = eng.routes["group"].collect((*out, ovf))
     for r in range(4):
         for q in range(len(codes)):
             if q != r:
@@ -130,7 +130,7 @@ def test_kernel_mutated_pairs(dev):
     eng, args, ovf = _group_args(codes, p, [0, 2, 4, 5], dev)
     out = parse_events(*args, ev_cap=eng.EV_CAP)
     _assert_same_logs(out, parse_events_plain(*args, ev_cap=eng.EV_CAP))
-    logs = eng.collect_group((*out, ovf))
+    logs = eng.routes["group"].collect((*out, ovf))
     for g, r in enumerate([0, 2, 4, 5]):
         for q in range(len(codes)):
             if q != r:
@@ -150,7 +150,7 @@ def test_kernel_query_bucket_above_2_18(dev):
     assert 1 << 18 < eng.LqP <= tce.CudaAll2All.MAX_Q
     out = parse_events(*args, ev_cap=eng.EV_CAP)
     _assert_same_logs(out, parse_events_plain(*args, ev_cap=eng.EV_CAP))
-    logs = eng.collect_group((*out, ovf))
+    logs = eng.routes["group"].collect((*out, ovf))
     for g, q_ in ((0, 1), (1, 0)):
         want = ne.parse_event_log(codes[g], codes[q_], p)
         assert np.array_equal(logs[g][q_], want), (g, q_)
@@ -195,9 +195,10 @@ def test_kernel_random_stress(dev, block):
         codes = _stress_set(rng)
         p = rand_params(rng) if trial % 2 else Params()
         eng = tce.CudaAll2All(codes, p, devices=[dev])
+        route = eng.routes["group"]
         for r_list in ([0, 1, 2, 3], [4, 5, 6, 7]):
-            gi = eng.build_group_index(r_list, dev)
-            logs = eng.collect_group(eng.dispatch_group(gi, 0, dev))
+            gi = route.build(r_list, dev)
+            logs = route.collect(route.dispatch(gi, r_list, 0, dev))
             for g, r in enumerate(r_list):
                 for q in range(len(codes)):
                     if q == r or logs[g][q] is None:
@@ -231,7 +232,7 @@ def test_kernel_tie_break_stress(dev, block):
         eng, args, ovf = _group_args(codes, p, [0, 1, 2, 3], dev)
         out = parse_events(*args, ev_cap=eng.EV_CAP)
         _assert_same_logs(out, parse_events_plain(*args, ev_cap=eng.EV_CAP))
-        logs = eng.collect_group((*out, ovf))
+        logs = eng.routes["group"].collect((*out, ovf))
         for r in range(4):
             for q in range(4):
                 if q != r and logs[r][q] is not None:
@@ -331,7 +332,7 @@ def test_kernel_seed_lengths(dev, msl):
     _assert_same_logs(out, parse_events_plain(*args, ev_cap=eng.EV_CAP))
     if msl > p.min_anchor_len:
         return
-    logs = eng.collect_group((*out, ovf))
+    logs = eng.routes["group"].collect((*out, ovf))
     for r in range(4):
         for q in range(4):
             if q != r:
@@ -356,7 +357,7 @@ def test_large_reference_takes_the_device_instantiation(dev):
     assert (parse_events.launches_shared,
             parse_events.launches_device) == (n0[0], n0[1] + 1)
     _assert_same_logs(out, parse_events_plain(*args, ev_cap=eng.EV_CAP))
-    logs = eng.collect_group((*out, ovf))
+    logs = eng.routes["group"].collect((*out, ovf))
     for g, q_ in ((0, 1), (1, 0)):
         want = ne.parse_event_log(codes[g], codes[q_], p)
         assert np.array_equal(logs[g][q_], want), (g, q_)
@@ -393,7 +394,7 @@ def test_dispatch_range_on_card(dev):
     eng = tce.CudaAll2All(codes, p, devices=[dev])
     for r in range(len(codes)):
         idx = eng.build_index(r, dev)
-        args, _ = eng.group_args(idx, 0, dev)
+        args, _ = eng.routes["group"].args(idx, 0, dev)
         _assert_same_logs(parse_events(*args), parse_events_plain(*args))
         logs = eng.collect(eng.dispatch_range(r, 0, dev, idx))
         assert len(logs) == eng.B
@@ -431,12 +432,12 @@ def _big_args(codes, params, dev, r_list=None, force=False):
         tce.CudaAll2All.MAX_REF_SYMS = old
     r_list = list(range(len(codes))) if r_list is None else r_list
     eng.big_launch_shape(len(r_list), dev)
-    bidx = eng.build_big_index(r_list, dev)
-    return eng, r_list, eng.big_args(bidx, r_list, 0, dev)
+    bidx = eng.routes["big"].build(r_list, dev)
+    return eng, r_list, eng.routes["big"].args(bidx, r_list, 0, dev)
 
 
 def _assert_oracle(eng, out, codes, p, r_list):
-    logs = eng.collect_big(out)
+    logs = eng.routes["big"].collect(out)
     checked = 0
     for g, r in enumerate(r_list):
         for q in range(min(len(codes), eng.B_big)):
@@ -643,7 +644,7 @@ def test_hybrid_on_card_fails_after_a_warm_failure(dev, monkeypatch):
 
     tried = threading.Event()
 
-    def dead(self, gidx, lo, device=None, qrows=None):
+    def dead(self, idx, r_list, lo, device=None, qidx=None, spans=None):
         tried.set()
         raise RuntimeError("injected: device unreachable")
 
@@ -656,7 +657,7 @@ def test_hybrid_on_card_fails_after_a_warm_failure(dev, monkeypatch):
         return real(codes, params, **kw)
 
     monkeypatch.setenv("LZANI_TPU_HYBRID_GREEDY", "1")
-    monkeypatch.setattr(tce.CudaAll2All, "dispatch_group", dead)
+    monkeypatch.setattr(tce.GroupRoute, "dispatch", dead)
     monkeypatch.setattr(tne, "all2all", held)
     _, codes = synth.viral_set(seed=7, n=24)
     codes.sort(key=len, reverse=True)

@@ -324,14 +324,14 @@ def held_native(monkeypatch):
     dummy group has been collected, so the device side claims rows."""
     monkeypatch.setenv("LZANI_TPU_HYBRID_GREEDY", "1")
     warm_done = threading.Event()
-    real_cg = tce.CudaAll2All.collect_group
+    real_cg = tce.GroupRoute.collect
 
     def cg(self, handles):
         out = real_cg(self, handles)
         warm_done.set()
         return out
 
-    monkeypatch.setattr(tce.CudaAll2All, "collect_group", cg)
+    monkeypatch.setattr(tce.GroupRoute, "collect", cg)
     real = tne.all2all
 
     def delayed(codes, params, **kw):

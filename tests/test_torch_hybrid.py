@@ -66,14 +66,14 @@ def slow_cpu(monkeypatch):
     """Hold the native pool back until the warm-up's dummy group has been
     collected, so the device side provably claims rows."""
     warm_done = threading.Event()
-    real_cg = tce.CudaAll2All.collect_group
+    real_cg = tce.GroupRoute.collect
 
     def cg(self, handles):
         out = real_cg(self, handles)
         warm_done.set()
         return out
 
-    monkeypatch.setattr(tce.CudaAll2All, "collect_group", cg)
+    monkeypatch.setattr(tce.GroupRoute, "collect", cg)
     real = tne.all2all
 
     def delayed(codes, params, **kw):
@@ -140,7 +140,7 @@ def test_hybrid_recovers_from_device_failure(greedy_claims, slow_cpu,
     codes = _codes(10, np.random.RandomState(21))
     ref = tne.all2all(codes, p)
     calls = {"n": 0}
-    real = tce.CudaAll2All.collect_group
+    real = tce.GroupRoute.collect
 
     def dying(self, handles):
         calls["n"] += 1
@@ -148,7 +148,7 @@ def test_hybrid_recovers_from_device_failure(greedy_claims, slow_cpu,
             raise RuntimeError("injected device crash")
         return real(self, handles)
 
-    monkeypatch.setattr(tce.CudaAll2All, "collect_group", dying)
+    monkeypatch.setattr(tce.GroupRoute, "collect", dying)
     st = {}
     out = hyb.all2all_hybrid(codes, p, device="cpu", cpu_threads=1,
                              stats=st)
@@ -177,11 +177,11 @@ def test_hybrid_survives_dead_device_at_warmup(greedy_claims, monkeypatch,
     warning and the reason in the stats."""
     tried = threading.Event()
 
-    def dead(self, gidx, lo, device=None, qrows=None):
+    def dead(self, idx, r_list, lo, device=None, qidx=None, spans=None):
         tried.set()
         raise RuntimeError("injected: device unreachable")
 
-    monkeypatch.setattr(tce.CudaAll2All, "dispatch_group", dead)
+    monkeypatch.setattr(tce.GroupRoute, "dispatch", dead)
     _hold_native_until(monkeypatch, tried)
     p = Params()
     codes = _codes(8, np.random.RandomState(22))
@@ -430,16 +430,16 @@ def test_hybrid_on_a_card_fails_after_migration(when, greedy_claims,
     if when == "warm-up":
         tried = threading.Event()
 
-        def dead(self, gidx, lo, device=None, qrows=None):
+        def dead(self, idx, r_list, lo, device=None, qidx=None, spans=None):
             tried.set()
             raise RuntimeError("injected: device unreachable")
 
-        monkeypatch.setattr(tce.CudaAll2All, "dispatch_group", dead)
+        monkeypatch.setattr(tce.GroupRoute, "dispatch", dead)
         _hold_native_until(monkeypatch, tried)
     else:
         request.getfixturevalue("slow_cpu")
         calls = {"n": 0}
-        real = tce.CudaAll2All.collect_group
+        real = tce.GroupRoute.collect
 
         def dying(self, handles):
             calls["n"] += 1
@@ -447,7 +447,7 @@ def test_hybrid_on_a_card_fails_after_migration(when, greedy_claims,
                 raise RuntimeError("injected device crash")
             return real(self, handles)
 
-        monkeypatch.setattr(tce.CudaAll2All, "collect_group", dying)
+        monkeypatch.setattr(tce.GroupRoute, "collect", dying)
     st = {}
     with pytest.raises(RuntimeError, match="the CUDA device failed"):
         hyb.all2all_hybrid(_codes(8, np.random.RandomState(23)), Params(),

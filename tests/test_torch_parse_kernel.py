@@ -27,11 +27,12 @@ H100_SMEM = 227 * 1024
 
 def _group_logs(eng, r_list, device=CPU):
     """{(r, q): event log or None} for every real pair of one group."""
-    gi = eng.build_group_index(r_list, device)
+    route = eng.routes["group"]
+    gi = route.build(r_list, device)
     out = {}
     n = len(eng.codes)
     for lo in range(0, eng.n_pad, eng.B):
-        evs = eng.collect_group(eng.dispatch_group(gi, lo, device))
+        evs = route.collect(route.dispatch(gi, r_list, lo, device))
         for g, r in enumerate(r_list):
             for b in range(eng.B):
                 q = lo + b
@@ -136,7 +137,7 @@ def test_query_bucket_above_2_18_matches_oracle():
 
 def _one_pair_inputs(ref, q, p):
     eng = tce.CudaAll2All([ref, q], p, devices=[CPU])
-    gi = eng.build_group_index([0], CPU)
+    gi = eng.routes["group"].build([0], CPU)
     qrows = (eng.Q[CPU][:eng.B], eng.DSZ[CPU][:eng.B])
     qbuf, cand, nh, ovf = tce.query_prep(*qrows, gi.ptab, eng.LqP,
                                          p.min_anchor_len, p.min_seed_len,
@@ -158,12 +159,12 @@ def test_event_capacity_overflow():
     eng, args, ovf = _one_pair_inputs(ref, q, p)
     ev, nev = parse_events(*args, ev_cap=n - 2)
     assert int(nev[0, 1]) == -1
-    assert eng.collect_group((ev, nev, ovf))[0][1] is None
+    assert eng.routes["group"].collect((ev, nev, ovf))[0][1] is None
     ev, nev = parse_events(*args, ev_cap=n)
     assert int(nev[0, 1]) == n
     assert np.array_equal(ev[0, 1, :n].numpy(), want)
     eng.EV_CAP = n - 1          # the download gate: nev > EV_CAP -> None
-    assert eng.collect_group((ev, nev, ovf))[0][1] is None
+    assert eng.routes["group"].collect((ev, nev, ovf))[0][1] is None
 
 
 def test_anchor_bucket_over_cnt_cap_falls_back():
@@ -179,7 +180,7 @@ def test_anchor_bucket_over_cnt_cap_falls_back():
     assert bool(ovf[0, 1])
     ev, nev = parse_events(*args, ev_cap=eng.EV_CAP)
     assert int(nev[0, 1]) >= 0
-    assert eng.collect_group((ev, nev, ovf))[0][1] is None
+    assert eng.routes["group"].collect((ev, nev, ovf))[0][1] is None
 
 
 def test_wrapper_rejects_bad_inputs():

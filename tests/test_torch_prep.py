@@ -2,8 +2,8 @@
 reference prep ``PallasRefIndex._prep_query_np`` + ``build_anchor_join``
 for cand / next_hit / the CNT_CAP overflow flag, the jnp ``dev_unpack3``
 and ``dev_kmer_stream``, and the resident state of ``PallasAll2All`` /
-``PallasGroupIndex`` (carried over by ``state_from_jax``). All values
-are integers: every comparison is exact."""
+``PallasGroupIndex`` (carried over by ``jax_state.state_from_jax``). All
+values are integers: every comparison is exact."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -14,6 +14,8 @@ from lzani_tpu.ops.anchor_tables import build_anchor_join
 from lzani_tpu.params import Params
 from lzani_tpu_torch.ops import cuda_engine as tce
 from lzani_tpu_torch.synth import mutate
+
+from jax_state import state_from_jax
 
 CPU = torch.device("cpu")
 
@@ -36,7 +38,7 @@ def test_query_prep_matches_numpy_reference(seed):
     p = Params()
     eng = tce.CudaAll2All(codes, p, devices=[CPU])
     r_list = [0, 3, 4, -1]
-    gi = eng.build_group_index(r_list, CPU)
+    gi = eng.routes["group"].build(r_list, CPU)
     qrows = (eng.Q[CPU][:eng.B], eng.DSZ[CPU][:eng.B])
     qbuf, cand, nh, ovf = tce.query_prep(*qrows, gi.ptab, eng.LqP,
                                          p.min_anchor_len, p.min_seed_len,
@@ -95,10 +97,10 @@ def test_state_from_jax_round_trip():
     teng = tce.CudaAll2All(codes, p, devices=[CPU])
     r_list = [1, 2, 0, -1]
     jg = jeng.build_group_index(r_list)
-    tg = teng.build_group_index(r_list, CPU)
-    st = tce.state_from_jax(np.asarray(jeng.Q[None]), np.asarray(jeng.DSZ[None]),
-                            np.asarray(jg.refbuf_p), np.asarray(jg.win),
-                            np.asarray(jg.nrs), CPU)
+    tg = teng.routes["group"].build(r_list, CPU)
+    st = state_from_jax(np.asarray(jeng.Q[None]), np.asarray(jeng.DSZ[None]),
+                        np.asarray(jg.refbuf_p), np.asarray(jg.win),
+                        np.asarray(jg.nrs), CPU)
     mine = {"Q": teng.Q[CPU], "DSZ": teng.DSZ[CPU], "refbuf_p": tg.refbuf_p,
             "win": tg.win, "nrs": tg.nrs}
     for name, t in mine.items():

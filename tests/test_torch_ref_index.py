@@ -152,14 +152,14 @@ def test_dispatch_range_matches_jax_and_oracle(range_engines, r):
 
 def test_batch_and_range_launch_equal_arguments():
     """One reference x the queries of an engine over the same genomes:
-    ``CudaRefIndex.batch_args`` and ``dispatch_range``'s ``group_args``
+    ``CudaRefIndex.batch_args`` and ``dispatch_range``'s ``GroupRoute.args``
     give the kernel equal tensors (one prep path), and differ only in
     the event cap of each API."""
     codes = _range_set()
     p = Params()
     args_b, ovf = tce.CudaRefIndex(codes[2], p, device=CPU).batch_args(codes)
     eng = tce.CudaAll2All(codes, p, devices=[CPU])
-    args_r, ovf_r = eng.group_args(eng.build_index(2, CPU), 0, CPU)
+    args_r, ovf_r = eng.routes["group"].args(eng.build_index(2, CPU), 0, CPU)
     assert eng.B == 8 and len(codes) == 6
     assert args_b[-2:] == (args_r[-2], tce.CudaRefIndex.MAXEV - 16)
     assert args_r[-1] == tce.CudaAll2All.EV_CAP
@@ -198,8 +198,9 @@ def test_group_path_matches_jax_v5_ilv2():
     for r_list in ([0, 1, 2, 3], [4, 5, -1, -1]):
         jev = v5.collect_group(v5.dispatch_group(
             v5.build_group_index(r_list, v5.devices[0]), 0, v5.devices[0]))
-        mev = mine.collect_group(mine.dispatch_group(
-            mine.build_group_index(r_list, CPU), 0, CPU))
+        route = mine.routes["group"]
+        mev = route.collect(route.dispatch(route.build(r_list, CPU), r_list,
+                                           0, CPU))
         for g, r in enumerate(r_list):
             for q in range(len(codes)):
                 if r < 0 or q == r:

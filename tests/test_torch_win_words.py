@@ -25,7 +25,7 @@ def _codes(seed, n=5, length=600):
 def test_group_with_dummy_slots_holds_each_references_table():
     p = Params()
     eng = tce.CudaAll2All(_codes(1), p, devices=[CPU])
-    gi = eng.build_group_index([0, 1, -1, -1], CPU)
+    gi = eng.routes["group"].build([0, 1, -1, -1], CPU)
     nrs = gi.nrs.numpy()
     assert nrs[2] == nrs[3] < nrs[0]               # the dummy slots
     cfg = eng.cfg
