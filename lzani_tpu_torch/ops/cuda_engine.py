@@ -5,10 +5,13 @@ Counterpart of the group and long-genome paths of
 ``lzani_tpu/ops/pallas_engine.py`` (``PallasAll2All``,
 ``PallasGroupIndex``, ``_get_group_step``, ``build_big_index``,
 ``dispatch_big``, ``collect_big``, ``all2all_pallas``). The query matrix
-is packed 3 symbols per byte and kept resident on the device. Each
-reference row is routed as the JAX package routes it (``row_path``) to
-the group route (``GroupRoute``: groups of 4, the dense 11-mer join,
-``parse_events``), the long-genome route (``BigRoute``: the sorted
+is packed 3 symbols per byte, laid out from the store's packed items and
+kept resident on the device; each index derives its references'
+composite buffers from the matrix's rows there (``dev_ref_buffers``), so
+a genome crosses to the device once. Each reference row is routed as
+the JAX package routes it (``row_path``) to the group route
+(``GroupRoute``: groups of 4, the dense 11-mer join, ``parse_events``),
+the long-genome route (``BigRoute``: the sorted
 two-word-key join of ``big.py``, ``parse_events_big``) or, above
 MAX_BIG_SYMS, the native engine. ``all2all_cuda`` plans the run
 (``plan.py``) and drives each unit through its route: a group's index
@@ -32,13 +35,14 @@ import numpy as np
 import torch
 
 from ..core import native_engine
+from ..io.packing import pack_items
 from .anchor_tables import SAT, win_words
 from .big import big_query_prep, big_ref_join
 from .finalize import UnitReplay
 from .parse import ParseCfg
 from .parse_kernel import parse_events, parse_events_big
 from .plan import Layout, Plan, route_rows
-from .prep import SYM_N_REF, SYM_N_SEQ, query_buffer_np, ref_buffer_np
+from .prep import SYM_N_REF, SYM_N_SEQ
 from .spans import OFF, Spans, UnitSpans, requested
 
 
@@ -56,17 +60,44 @@ def _bucket(n, lo=4096):
     return b
 
 
-def pack3_rows(codes: np.ndarray) -> np.ndarray:
-    """(R, L) uint8 codes (values 0..5) -> (R, ceil(L/3)) radix-216 bytes
-    (the io/packing.py three-in-byte layout, row-wise)."""
-    R, L = codes.shape
-    Lp = -(-L // 3)
-    c = np.zeros((R, Lp * 3), np.uint8)
-    c[:, :L] = codes
-    c = c.reshape(R, Lp, 3)
-    out = c[:, :, 0] * np.uint8(36)       # at most 5 * 43 = 215: no wrap
-    out += c[:, :, 1] * np.uint8(6)
-    out += c[:, :, 2]
+def _byte_table():
+    """Radix-216 byte -> the same byte with each slot's N_ref (4) made
+    N_seq (5), as ``prep.query_buffer_np`` maps codes; bytes above 215
+    (no packing makes them) map to themselves."""
+    b = np.arange(256)
+    slots = [b // 36, (b // 6) % 6, b % 6]
+    c0, c1, c2 = (np.where(x == SYM_N_REF, SYM_N_SEQ, x) for x in slots)
+    return np.where(b < 216, c0 * 36 + c1 * 6 + c2, b).astype(np.uint8)
+
+
+_TO_N_SEQ = _byte_table()
+#: a byte of three N_seq codes
+_N3 = SYM_N_SEQ * 43
+
+
+def query_rows(codes, LqP: int, n_rows: int) -> np.ndarray:
+    """The resident query matrix: (n_rows, pad128(ceil(LqP / 3))) uint8,
+    row i the radix-216 packing (``io/packing.py``) of
+    ``prep.query_buffer_np(codes[i], mrd)`` filled with N_seq up to LqP,
+    its last byte's slots past LqP zero and zero bytes past it; rows past
+    ``len(codes)`` all N_seq (padding). Laid out from the packed items
+    (`codes.chunks`, a ``PackedCodes``; a plain list is packed first):
+    each item's bytes go through ``_TO_N_SEQ`` once and the empty slots
+    of its last byte become N_seq. No item is unpacked."""
+    if not hasattr(codes, "chunks"):
+        codes = pack_items(codes)
+    full, part = divmod(LqP, 3)
+    out = np.zeros((n_rows, _pad128(full + (part > 0))), np.uint8)
+    out[:, :full] = _N3
+    if part:                       # N_seq in its first `part` slots
+        out[:, full] = _N3 - _N3 % (36 if part == 1 else 6)
+    for i, (chunk, n) in enumerate(zip(codes.chunks, codes.slens.tolist())):
+        w, r = -(-n // 3), n % 3
+        assert w <= full, (n, LqP)
+        out[i, :w] = _TO_N_SEQ[chunk[:w]]
+        if r:                      # keep its first r slots, fill N_seq
+            b, unit = int(out[i, w - 1]), 36 if r == 1 else 6
+            out[i, w - 1] = b - b % unit + _N3 % unit
     return out
 
 
@@ -90,6 +121,26 @@ def dev_unpack3(packed: torch.Tensor, L: int) -> torch.Tensor:
     p = packed.to(torch.int32)
     out = torch.stack([p // 36, (p // 6) % 6, p % 6], dim=-1)
     return out.reshape(p.shape[0], -1)[:, :L]
+
+
+def dev_ref_buffers(qrows: torch.Tensor, lens, mrd: int,
+                    LrP: int) -> torch.Tensor:
+    """(G, LrP) uint8 composite reference buffers on the device of the
+    packed rows `qrows` ((G, W) uint8, radix 216, as ``query_rows`` lays
+    them out) of `lens[g]` symbols each (host ints): ``prep.ref_buffer_np``
+    of each row's codes, fwd (N_seq -> N_ref) | N_ref x 2 mrd | its
+    reverse complement, filled with N_ref to LrP. One row at a time, so
+    the transients are one genome's."""
+    out = torch.full((len(lens), LrP), SYM_N_REF, dtype=torch.uint8,
+                     device=qrows.device)
+    for g, n in enumerate(int(v) for v in lens):
+        assert 2 * n + 3 * mrd <= LrP, (n, mrd, LrP)
+        c = dev_unpack3(qrows[g:g + 1, :-(-n // 3)], n)[0].to(torch.uint8)
+        fwd = torch.where(c == SYM_N_SEQ, SYM_N_REF, c)
+        out[g, :n] = fwd
+        out[g, n + 2 * mrd:2 * n + 2 * mrd] = torch.where(
+            fwd < SYM_N_REF, 3 - fwd, fwd).flip(0)
+    return out
 
 
 def dev_kmer_stream(buf: torch.Tensor, k: int, n_sym: int = 4) -> torch.Tensor:
@@ -227,27 +278,31 @@ def _entries(device, devices) -> list:
 
 # ---- resident state --------------------------------------------------------
 
+#: symbols of a group's dummy slot (r = -1): A codes, a zero packed row
+DUMMY_SYMS = 16
+
+
 class _RefSet:
     """What both routes' indexes hold for G references at shared length
     buckets: `refbuf` (G, LrP) uint8 codes, `win` (G, WinP) int32 WIN bit
     words, `nrs` (G,) int32 composite lengths, `win_s` (host seconds of
-    ``anchor_tables.win_words``). A subclass uploads the buffers
-    (``_upload``) and builds its join on the device (``_join``; `spans`
-    records it as ``dev.join``)."""
+    ``anchor_tables.win_words``) and `h2d_bytes` (what the build copied
+    from the host: the WIN words and the lengths). The references come
+    as packed rows already on the device (`qrows`, rows of the query
+    matrix, ``CudaAll2All.ref_rows``) and their symbol counts `lens`; the
+    buffers are derived from them there (``dev_ref_buffers``; `spans`
+    records it as ``dev.refs``) and a subclass builds its join from them
+    (``_join``; ``dev.join``)."""
 
-    def __init__(self, codes_list, params, device, LrP: int | None = None,
-                 KaP: int | None = None, spans=OFF):
+    def __init__(self, qrows: torch.Tensor, lens, params, device,
+                 LrP: int | None = None, KaP: int | None = None, spans=OFF):
         cfg = ParseCfg.from_params(params)
-        G = self.G = len(codes_list)
-        rbs = [ref_buffer_np(c, cfg.mrd) for c in codes_list]
-        nrs = np.array([len(rb) for rb in rbs], np.int32)
+        self.G = len(lens)
+        nrs = (2 * np.asarray(lens, np.int64) + 3 * cfg.mrd).astype(np.int32)
         mx = int(nrs.max())
         self.LrP = LrP if LrP is not None else _bucket(mx + 1024)
         self.KaP = KaP if KaP is not None else _bucket(mx + 256, lo=1024)
         assert self.LrP >= mx + 1024 and self.KaP >= mx + 256
-        bufs = np.full((G, self.LrP), SYM_N_REF, np.uint8)
-        for g, rb in enumerate(rbs):
-            bufs[g, :len(rb)] = rb
         t0 = time.perf_counter()
         wfs = win_words(nrs, cfg.mal, cfg.msl, cfg.mrd, cfg.mqd)  # (G, WinP)
         self.win_s = time.perf_counter() - t0
@@ -255,30 +310,33 @@ class _RefSet:
         dev = torch.device(device)
         self.win = torch.from_numpy(wfs).to(dev)
         self.nrs = torch.from_numpy(nrs).to(dev)
-        refbuf = self._upload(bufs, dev)
+        self.h2d_bytes = wfs.nbytes + nrs.nbytes
+        with spans.stage("dev.refs"):
+            self.refbuf = dev_ref_buffers(qrows, lens, cfg.mrd, self.LrP)
         with spans.stage("dev.join"):
-            self._join(refbuf, cfg, spans)
+            self._join(cfg, spans)
+
+    @classmethod
+    def of_codes(cls, codes_list, params, device, **kw):
+        """The index of references given as codes (a list of uint8 arrays
+        or a ``PackedCodes``): their packed rows laid out as the query
+        matrix's (``query_rows``) and copied to `device` (counted in
+        `h2d_bytes`)."""
+        mrd = ParseCfg.from_params(params).mrd
+        dszs, LqP = query_shape(codes_list, mrd)
+        rows = torch.from_numpy(query_rows(codes_list, LqP, len(dszs)))
+        idx = cls(rows.to(device), dszs - mrd, params, device, **kw)
+        idx.h2d_bytes += rows.nbytes
+        return idx
 
 
 class GroupIndex(_RefSet):
     """Device state of a group-route group (counterpart of
-    PallasGroupIndex): the buffers, also in their packed transfer form
-    `refbuf_p`, and the dense anchor join ``ptab`` / ``poslist``
-    (``group_join``)."""
+    PallasGroupIndex): the buffers and the dense anchor join ``ptab`` /
+    ``poslist`` (``group_join``)."""
 
-    def _upload(self, bufs, dev):
-        """Upload the (G, LrP) uint8 buffers packed (``refbuf_p``) and
-        unpack them on the device; returns the codes the join reads."""
-        rbp = pack3_rows(bufs)
-        rbp_padded = np.zeros((self.G, _pad128(rbp.shape[1])), np.uint8)
-        rbp_padded[:, :rbp.shape[1]] = rbp
-        self.refbuf_p = torch.from_numpy(rbp_padded).to(dev)
-        refbuf = dev_unpack3(self.refbuf_p, self.LrP)
-        self.refbuf = refbuf.to(torch.uint8).contiguous()
-        return refbuf
-
-    def _join(self, refbuf, cfg, spans):
-        self.ptab, self.poslist = group_join(refbuf, cfg.mal, self.KaP)
+    def _join(self, cfg, spans):
+        self.ptab, self.poslist = group_join(self.refbuf, cfg.mal, self.KaP)
 
 
 class BigIndex(_RefSet):
@@ -287,15 +345,9 @@ class BigIndex(_RefSet):
     join, ``keys`` (G, LrP) int64 sorted k-mer keys and ``poslist`` (G,
     KaP) int32 positions in the same order (``big_ref_join``)."""
 
-    def _upload(self, bufs, dev):
-        """The buffers go up as they are: at megabase sizes packing them
-        on the host costs more than the transfer it saves."""
-        self.refbuf = torch.from_numpy(bufs).to(dev)
-        return self.refbuf
-
-    def _join(self, refbuf, cfg, spans):
+    def _join(self, cfg, spans):
         """The sorted join; `spans` records its stages (``big_ref_join``)."""
-        self.keys, self.poslist = big_ref_join(refbuf, cfg.mal, self.KaP,
+        self.keys, self.poslist = big_ref_join(self.refbuf, cfg.mal, self.KaP,
                                                spans)
 
 
@@ -314,19 +366,15 @@ class CudaRefIndex:
         self.cfg = ParseCfg.from_params(params)
         self.device = (torch.device(device) if device is not None else
                        torch.device("cuda", torch.cuda.current_device()))
-        self.gidx = GroupIndex([codes], params, self.device)
+        self.gidx = GroupIndex.of_codes([codes], params, self.device)
 
     def batch_args(self, queries: list):
         """(arguments of ``parse_events``, (1, B) overflow flags) of one
         batch: a query with an anchor bucket over CNT_CAP is flagged."""
-        qbs = [query_buffer_np(q, self.cfg.mrd) for q in queries]
-        dsz = np.array([len(qb) for qb in qbs], np.int32)
-        LqP = _bucket(int(dsz.max()) + 1024)
-        rows = np.full((len(qbs), LqP), SYM_N_SEQ, np.uint8)
-        for b, qb in enumerate(qbs):
-            rows[b, :len(qb)] = qb
-        return self.rows_args(torch.from_numpy(pack3_rows(rows)).to(
-            self.device), torch.from_numpy(dsz).to(self.device), LqP)
+        dsz, LqP = query_shape(queries, self.cfg.mrd)
+        rows = query_rows(queries, LqP, len(dsz))
+        return self.rows_args(torch.from_numpy(rows).to(self.device),
+                              torch.from_numpy(dsz).to(self.device), LqP)
 
     def rows_args(self, q_rows, dsz, LqP: int):
         """``batch_args`` of query rows already on the device
@@ -419,14 +467,8 @@ class CudaAll2All:
         # (28.17 vs 27.17 ms at G = 4; dispatch_probe.py, NVIDIA H100 80GB
         # HBM3, 700.00 W; PERF.md)
         self.B = min(256, _bucket(n, lo=8))
-        n_pad = -(-n // self.B) * self.B
-        qb = np.full((n_pad, self.LqP), SYM_N_SEQ, np.uint8)
-        for i, c in enumerate(codes):
-            qb[i, :self.dszs[i]] = query_buffer_np(c, cfg.mrd)
-        self.n_pad = n_pad
-        qp = pack3_rows(qb)
-        qp_padded = np.zeros((n_pad, _pad128(qp.shape[1])), np.uint8)
-        qp_padded[:, :qp.shape[1]] = qp
+        n_pad = self.n_pad = -(-n // self.B) * self.B
+        qp_padded = query_rows(codes, self.LqP, n_pad)
         dszs_pad = np.full(n_pad, cfg.msl, np.int32)   # padding rows: no-op
         dszs_pad[:n] = self.dszs
         # one copy per distinct device: entries that repeat a device share
@@ -436,6 +478,18 @@ class CudaAll2All:
         self.DSZ = {d: torch.from_numpy(dszs_pad).to(d) for d in self.Q}
         #: the device routes by the path names of their rows (``row_path``)
         self.routes = {"group": GroupRoute(self), "big": BigRoute(self)}
+
+    def ref_rows(self, r_list, device):
+        """(packed rows (G, W) uint8 on `device`, symbol counts (G,)) of
+        the references `r_list` for an index build (``_RefSet``): their
+        rows of the query matrix, copied on the device; r = -1 is a dummy
+        slot of DUMMY_SYMS A codes (a zero row)."""
+        Q = self.Q[torch.device(device)]
+        rows = torch.stack([Q[int(r)] if r >= 0 else Q.new_zeros(Q.shape[1])
+                            for r in r_list])
+        lens = np.array([self.dszs[r] - self.cfg.mrd if r >= 0 else
+                         DUMMY_SYMS for r in r_list], np.int64)
+        return rows, lens
 
     def gather_qrows(self, idx, device=None):
         """Packed query rows and lengths of an arbitrary row set (the
@@ -474,9 +528,9 @@ class CudaAll2All:
 
     def build_index(self, r: int, device=None) -> GroupIndex:
         """Device index of reference r alone (G = 1, at its own length
-        buckets; the join is built on the device)."""
-        return GroupIndex([self.codes[r]], self.params,
-                          device or self.devices[0])
+        buckets; built on the device)."""
+        dev = device or self.devices[0]
+        return GroupIndex(*self.ref_rows([r], dev), self.params, dev)
 
     def dispatch_range(self, r: int, lo: int, device=None, idx=None):
         """Prep + kernel for reference r x the B queries [lo, lo + B): (ev
@@ -592,10 +646,9 @@ class GroupRoute(_Route):
 
     def build(self, r_list, device=None, spans=OFF) -> GroupIndex:
         """r == -1 entries are cheap dummy slots."""
-        eng, dummy = self.eng, np.zeros(16, np.uint8)
-        return GroupIndex([eng.codes[r] if r >= 0 else dummy
-                           for r in r_list], eng.params,
-                          device or eng.devices[0],
+        eng = self.eng
+        dev = device or eng.devices[0]
+        return GroupIndex(*eng.ref_rows(r_list, dev), eng.params, dev,
                           LrP=eng.LrP_ref, KaP=eng.KaP_ref, spans=spans)
 
     def args(self, idx: GroupIndex, lo, device=None, qrows=None):
@@ -643,9 +696,9 @@ class BigRoute(_Route):
 
     def build(self, r_list, device=None, spans=OFF) -> BigIndex:
         eng = self.eng
-        return BigIndex([eng.codes[r] for r in r_list], eng.params,
-                        device or eng.devices[0], LrP=eng.LrP_big,
-                        KaP=eng.KaP_big, spans=spans)
+        dev = device or eng.devices[0]
+        return BigIndex(*eng.ref_rows(r_list, dev), eng.params, dev,
+                        LrP=eng.LrP_big, KaP=eng.KaP_big, spans=spans)
 
     def args(self, idx: BigIndex, r_list, lo, device=None, spans=OFF):
         """Prep of a long-genome dispatch: the arguments of
@@ -759,7 +812,8 @@ def all2all_cuda(codes, params, filter_csr=None, progress=None,
     over CNT_CAP in the row) and big_fallback_pairs (their (r, q)),
     native_rows / native_row_pairs, big_rows, G_big / B_big (a
     long-genome launch), replay_mismatches, dispatches, launches /
-    big_launches, device_units (per entry), and host clocks: setup_s
+    big_launches, device_units (per entry), index_h2d_bytes (what the
+    index builds copied from the host), and host clocks: setup_s
     (entry to the first dispatch), dispatch_s (index builds, dispatches)
     and of it win_s (WIN words), download_s and of it download_sync_s
     (the wait for the device, on one stream the next unit's prep and
@@ -783,7 +837,8 @@ def all2all_cuda(codes, params, filter_csr=None, progress=None,
               big_cap_fallbacks=0, big_fallback_pairs=[], native_rows=0,
               native_row_pairs=0, big_rows=0, G_big=0, B_big=0,
               replay_mismatches=0, dispatches=0, launches=0, big_launches=0,
-              device_units=[], setup_s=0.0, dispatch_s=0.0, win_s=0.0,
+              device_units=[], index_h2d_bytes=0, setup_s=0.0,
+              dispatch_s=0.0, win_s=0.0,
               download_s=0.0, download_sync_s=0.0, replay_tail_s=0.0,
               replay_c_s=0.0, replay_wall_s=0.0, replay_pairs=0)
     if sp is not None:
@@ -867,6 +922,7 @@ def all2all_cuda(codes, params, filter_csr=None, progress=None,
                                route.build(grp.r_list, devices[e], us))
                     us.host("unit.index", t0)
                     st["win_s"] += live[e][1].win_s
+                    st["index_h2d_bytes"] += live[e][1].h2d_bytes
                 idx = live[e][1]
                 handles = route.dispatch(idx, grp.r_list, unit.lo, devices[e],
                                          unit.qidx, us)

@@ -98,7 +98,7 @@ def test_prep_matches_jax(mal):
     dsz = eng.DSZ[CPU][:eng.B_big][None].repeat(len(r_list), 1)
     cand, nh = tbig.big_query_prep(q, dsz, bidx.keys, mal, p.min_seed_len)
     for g in range(len(r_list)):
-        jref, khi, klo, jpos = build(jnp.asarray(tce.pack3_rows(
+        jref, khi, klo, jpos = build(jnp.asarray(jpe.pack3_rows(
             bidx.refbuf[g:g + 1].numpy())))
         assert np.array_equal(bidx.refbuf[g].numpy(), np.asarray(jref)[0])
         key = (np.asarray(khi, np.int64) << 30) | np.asarray(klo, np.int64)

@@ -690,6 +690,33 @@ BIG_STAGES = {"dev.kmers": ("dev.join", "dev.prep"), "dev.sort": ("dev.join",),
               "dev.search": ("dev.prep",), "dev.next_hit": ("dev.prep",)}
 
 
+def test_reference_buffers_derived_on_card(dev):
+    """On the card, the buffers an index derives from the query matrix's
+    rows equal ``ref_buffer_np``: a long-genome index of a 5 Mb genome
+    (with N runs) and a relative at LrP 2^24, and a viral group of 4."""
+    from lzani_tpu_torch.ops.prep import ref_buffer_np
+
+    rng = np.random.RandomState(41)
+    g = synth.bacterial_genome(rng, 5_000_000)
+    g[1000:1100], g[2000:2050] = 4, 5
+    codes = [g, synth.bacterial_relative(rng, g, 0.04)]
+    p = synth.bacterial_params()
+    mrd = p.max_dist_in_ref
+    eng = tce.CudaAll2All(codes, p, devices=[dev])
+    eng.big_launch_shape(2, dev)
+    bidx = eng.routes["big"].build([0, 1], dev)
+    assert bidx.LrP == 1 << 24
+    for k, c in enumerate(codes):
+        assert np.array_equal(bidx.refbuf[k].cpu().numpy(),
+                              ref_buffer_np(c, mrd, pad_to=bidx.LrP)), k
+    _, viral = synth.viral_set(seed=7, n=8)
+    eng = tce.CudaAll2All(viral, Params(), devices=[dev])
+    gi = eng.routes["group"].build([0, 1, 2, 3], dev)
+    want = np.stack([ref_buffer_np(viral[r], Params().max_dist_in_ref,
+                                   pad_to=gi.LrP) for r in range(4)])
+    assert np.array_equal(gi.refbuf.cpu().numpy(), want)
+
+
 def test_long_genome_spans_record_the_device_stages(dev, monkeypatch):
     """Under a profiler a long-genome run records its four device stages,
     each inside its unit's ``dev.join`` or ``dev.prep`` and together no
@@ -723,6 +750,12 @@ def test_long_genome_spans_record_the_device_stages(dev, monkeypatch):
     def total(names):
         return sum(s[3] - s[2] for n in names for s in by[n])
     assert total(BIG_STAGES) <= total(("dev.join", "dev.prep")) + 1e-6
+    # one buffer derivation per index build, each before its join
+    assert len(by["dev.refs"]) == len(by["unit.index"])
+    for s in by["dev.refs"]:
+        assert s[4] == str(dev)
+        assert any(j[1] == s[1] and s[3] <= j[2] + 1e-6
+                   for j in by["dev.join"]), s
     assert len(by["unit.replay"]) == st["dispatches"]
 
     class _NoEvent:
@@ -740,7 +773,7 @@ def test_long_genome_spans_record_the_device_stages(dev, monkeypatch):
     with profile():
         tce.all2all_cuda(viral, TParams(), device=dev, stats=st)
     names = {s[0] for s in st["spans"]}
-    assert "dev.join" in names and "dev.prep" in names
+    assert {"dev.refs", "dev.join", "dev.prep"} <= names
     assert not names & set(BIG_STAGES)
 
 

@@ -88,9 +88,22 @@ def test_buffers(mrd, pad):
 
 @pytest.mark.parametrize("rows,cols", [(1, 1), (3, 1000), (5, 4097)])
 def test_pack3_rows(rows, cols):
+    """The query matrix laid out from packed items (``query_rows``, its
+    rows past the items' N_seq padding) equals the JAX package's
+    ``pack3_rows`` of the query buffers, padded to 128 bytes."""
     rng = np.random.RandomState(rows)
-    codes = rng.randint(0, 6, (rows, cols)).astype(np.uint8)
-    assert np.array_equal(tce.pack3_rows(codes), jpe.pack3_rows(codes))
+    codes = [rng.randint(0, 6, cols - k).astype(np.uint8)
+             for k in range(min(rows, cols))]
+    n_pad, mrd = rows + 2, 40
+    LqP = tce._bucket(cols + mrd + 1024)
+    qb = np.full((n_pad, LqP), tprep.SYM_N_SEQ, np.uint8)
+    for i, c in enumerate(codes):
+        qb[i, :len(c) + mrd] = jprep.query_buffer_np(c, mrd)
+    want = jpe.pack3_rows(qb)
+    got = tce.query_rows(codes, LqP, n_pad)
+    assert got.shape == (n_pad, tce._pad128(want.shape[1]))
+    assert np.array_equal(got[:, :want.shape[1]], want)
+    assert not got[:, want.shape[1]:].any()
 
 
 @pytest.mark.parametrize("n", [0, 1, 4095, 4096, 4097, 700_000])

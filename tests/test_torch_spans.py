@@ -4,6 +4,7 @@ under the unit's id, inside the engine's loop, adding up to the engine's
 counters, and leaving the outputs as they are; the benchmark's readers
 of them, on a traced run of the harness on the CPU and on made-up
 traces. The device spans' clock is checked on a card (marked ``cuda``)."""
+import contextlib
 import json
 import re
 import time
@@ -134,6 +135,41 @@ def test_spans_add_up_to_the_counters(path):
     # each unit's replay span holds its native call
     assert st["native_rows"] == 0
     assert total["unit.replay"] >= st["replay_c_s"] > 0
+
+
+class _StageLog:
+    """A unit's spans that list the device stages it enters and leaves."""
+
+    def __init__(self):
+        self.log = []
+
+    @contextlib.contextmanager
+    def stage(self, name):
+        self.log.append(("+", name))
+        yield
+        self.log.append(("-", name))
+
+
+@pytest.mark.parametrize("path", ["group", "big"])
+def test_each_build_records_dev_refs_once_before_its_join(path):
+    """An index build records ``dev.refs`` once, then ``dev.join``, which
+    holds the long-genome join's own stages; ``dev.refs`` is outside it,
+    so ``engine.join_device_s`` reads the join alone."""
+    eng = tce.CudaAll2All(_codes(5), _params(path), devices=[CPU])
+    r_lists = ([0, 3, -1, -1], [-1] * 4) if path == "group" else ([0, 2],
+                                                                 [4])
+    if path == "big":
+        eng.big_launch_shape(2, CPU)
+    for r_list in r_lists:
+        rec = _StageLog()
+        eng.routes[path].build(r_list, CPU, rec)
+        assert rec.log[:3] == [("+", "dev.refs"), ("-", "dev.refs"),
+                               ("+", "dev.join")], rec.log
+        assert rec.log[-1] == ("-", "dev.join")
+        assert [s for s in rec.log if s[1] == "dev.refs"] == rec.log[:2]
+        inner = {n for _, n in rec.log[3:-1]}
+        assert inner == (set() if path == "group" else {"dev.kmers",
+                                                        "dev.sort"})
 
 
 def test_outputs_equal_with_spans_on_and_off(tmp_path):
