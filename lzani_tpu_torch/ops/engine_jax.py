@@ -30,6 +30,7 @@ kernels' plain versions (tests). A list of device entries (a mesh,
 from __future__ import annotations
 
 import sys
+import time
 from typing import NamedTuple
 
 import numpy as np
@@ -43,6 +44,7 @@ from .fold_stats import fold_stats
 from .parse import ParseCfg
 from .parse_kernel import parse_events
 from .prep import SYM_N_REF, ref_buffer_np
+from .spans import OFF, Spans, UnitSpans, requested
 
 
 class Batch(NamedTuple):
@@ -79,28 +81,42 @@ class RefIndexJax:
         self.index = CudaRefIndex(codes, params, _device(device))
         self.device = self.index.device
 
-    def dispatch(self, args, overflow, want_factors: bool = False):
+    def dispatch(self, args, overflow, want_factors: bool = False,
+                 spans=OFF):
         """Launch the parse and the fold on ``CudaRefIndex.batch_args`` or
-        ``rows_args`` output; device tensors, nothing synchronised."""
+        ``rows_args`` output; device tensors, nothing synchronised.
+        `spans` records ``row.launch`` and the stages ``dev.kernel`` (the
+        parse) and ``dev.fold``."""
         refbuf, qbuf, _, _, _, _, dsz, nrs, cfg, cap = args
-        ev, nev = parse_events(*args)
-        skip = overflow | (nev < 0) | (nev > cap)
-        out = fold_stats(refbuf, qbuf, ev, torch.where(skip, -1, nev), dsz,
-                         nrs, cfg, want_factors)
+        with spans.span("row.launch"):
+            with spans.stage("dev.kernel"):
+                ev, nev = parse_events(*args)
+            skip = overflow | (nev < 0) | (nev > cap)
+            nev = torch.where(skip, -1, nev)
+            with spans.stage("dev.fold"):
+                out = fold_stats(refbuf, qbuf, ev, nev, dsz, nrs, cfg,
+                                 want_factors)
         return skip, out
 
-    def collect(self, handles, query) -> Batch:
+    def collect(self, handles, query, spans=OFF) -> Batch:
         """Download a ``dispatch`` and parse its fallbacks natively;
         `query(b)` gives the codes of the batch's query b (only the
-        fallbacks' are read: a run's codes may unpack on each access)."""
+        fallbacks' are read: a run's codes may unpack on each access).
+        `spans` records the copies, with the wait for the device, as
+        ``row.download``, then puts the device stages on the host's clock,
+        and records the native parses as ``row.fallback`` when there are
+        any."""
         skip, out = handles
-        stats = out[0][0].cpu().numpy().copy()
-        status = out[1][0].cpu().numpy()
-        fallbacks = np.flatnonzero(skip[0].cpu().numpy())
-        fac = nfac = None
-        if len(out) == 4:
-            fac = out[2][0].cpu().numpy().copy()
-            nfac = out[3][0].cpu().numpy().copy()
+        with spans.span("row.download"):
+            stats = out[0][0].cpu().numpy().copy()
+            status = out[1][0].cpu().numpy()
+            fallbacks = np.flatnonzero(skip[0].cpu().numpy())
+            fac = nfac = None
+            if len(out) == 4:
+                fac = out[2][0].cpu().numpy().copy()
+                nfac = out[3][0].cpu().numpy().copy()
+        spans.resolve()
+        t0 = time.perf_counter()
         for b in fallbacks:
             q = query(b)
             stats[b] = native_engine.parse_pair(self.codes, q,
@@ -109,6 +125,8 @@ class RefIndexJax:
                 f = native_engine.parse_factors(self.codes, q, self.params)
                 fac[b, :len(f)] = f
                 nfac[b] = len(f)
+        if len(fallbacks):
+            spans.host("row.fallback", t0)
         return Batch(stats, fallbacks, np.flatnonzero(status == -1), fac,
                      nfac)
 
@@ -190,23 +208,28 @@ def row_queries(r, n, filter_csr):
     return [int(q) for q in ids[indptr[r]:indptr[r + 1]]]
 
 
-def parse_split(indexes: dict, mesh, n_lanes: int, args_of, query) -> Batch:
+def parse_split(indexes: dict, mesh, n_lanes: int, args_of, query,
+                spans=None) -> Batch:
     """One batch of `n_lanes` queries cut into contiguous shards, one per
     entry of `mesh` (the last shards may be short or empty), each shard's
     parse and fold launched on its entry's device before any shard is read
     back, the results gathered in lane order. `indexes[device]` is the
     reference's ``RefIndexJax`` on that device, `args_of(index, lo, hi)`
     the (``parse_events`` arguments, overflow flags) of lanes [lo, hi) on
-    its device and `query(b)` the codes of lane b (fallbacks only)."""
+    its device and `query(b)` the codes of lane b (fallbacks only).
+    `spans[device]`, when given, records each shard's ``row.args``
+    (`args_of`) and its launch and download."""
     per = -(-n_lanes // len(mesh))
     shards = []
     for k, dev in enumerate(mesh):
         lo, hi = k * per, min((k + 1) * per, n_lanes)
         if lo < hi:
-            idx = indexes[dev]
-            shards.append((lo, idx, idx.dispatch(*args_of(idx, lo, hi))))
-    parts = [(lo, idx.collect(h, lambda b, lo=lo: query(lo + b)))
-             for lo, idx, h in shards]
+            idx, us = indexes[dev], OFF if spans is None else spans[dev]
+            with us.span("row.args"):
+                args = args_of(idx, lo, hi)
+            shards.append((lo, idx, idx.dispatch(*args, spans=us), us))
+    parts = [(lo, idx.collect(h, lambda b, lo=lo: query(lo + b), us))
+             for lo, idx, h, us in shards]
     return Batch(np.concatenate([p.stats for _, p in parts]),
                  *(np.concatenate([lo + getattr(p, key) for lo, p in parts])
                    for key in ("fallbacks", "mismatched")))
@@ -226,7 +249,12 @@ def all2all_jax(codes: list, params, filter_csr=None, batch_size: int = 512,
     `stats`, when given, receives: rows and batches (parsed), fold_pairs
     (triples folded on the device), cap_fallbacks (pairs parsed on the
     native engine), replay_mismatches (logs the fold rejected), launches
-    and fold_launches (kernel launches of the parse and of the fold)."""
+    and fold_launches (kernel launches of the parse and of the fold);
+    while a torch profiler records at entry, ``spans`` (``ops/spans.py``,
+    PERF.md section 3), each under its reference row's index: the host's
+    ``row.index`` (the row's ``RefIndexJax`` builds), ``row.args``,
+    ``row.launch``, ``row.download`` and ``row.fallback`` (``parse_split``),
+    and on a card the device's ``dev.kernel`` and ``dev.fold``."""
     n = len(codes)
     if filter_csr is None:
         out = np.zeros((n, max(n - 1, 0), 3), dtype=np.int32)
@@ -239,6 +267,9 @@ def all2all_jax(codes: list, params, filter_csr=None, batch_size: int = 512,
     folds0 = fold_kernel.fold_stats.launches
     st = dict(rows=0, batches=0, fold_pairs=0, cap_fallbacks=0,
               replay_mismatches=0, launches=0, fold_launches=0)
+    sp = Spans() if requested() else None
+    if sp is not None:
+        st["spans"] = sp.spans
     mismatched = []
     pairs_done = 0
     queries = [row_queries(r, n, filter_csr) for r in range(n)]
@@ -251,11 +282,18 @@ def all2all_jax(codes: list, params, filter_csr=None, batch_size: int = 512,
         dszs = shape[0]
         # the packed queries stay on each device for the whole run
         eng = CudaAll2All(codes, params, devices=list(mesh), shape=shape)
+        if sp is not None:
+            sp.anchor(mesh)
     for r in range(n):
         q_ids = queries[r]
         if q_ids:
+            us = None if sp is None else {d: UnitSpans(sp, r, d)
+                                          for d in dict.fromkeys(mesh)}
+            t0 = time.perf_counter()
             indexes = {d: RefIndexJax(codes[r], params, d)
                        for d in dict.fromkeys(mesh)}
+            if sp is not None:
+                sp.host("row.index", r, t0)
             st["rows"] += 1
             order = sorted(range(len(q_ids)), key=lambda k: dszs[q_ids[k]])
             for s in range(0, len(order), batch_size):
@@ -265,7 +303,7 @@ def all2all_jax(codes: list, params, filter_csr=None, batch_size: int = 512,
                     indexes, mesh, len(qs),
                     lambda idx, lo, hi: idx.index.rows_args(
                         *eng.gather_qrows(qs[lo:hi], idx.device), eng.LqP),
-                    lambda b: codes[qs[b]])
+                    lambda b: codes[qs[b]], us)
                 st["batches"] += 1
                 st["cap_fallbacks"] += len(res.fallbacks)
                 st["fold_pairs"] += (len(qs) - len(res.fallbacks)

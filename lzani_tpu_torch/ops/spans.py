@@ -1,11 +1,13 @@
 """Spans of one ``all2all_cuda`` call: intervals of the engine's main
 thread, of its replay pool and of each work unit's stages on the device,
-all in ``time.perf_counter()`` seconds.
+all in ``time.perf_counter()`` seconds; or of one ``all2all_jax`` call
+(the automaton backend), whose work unit is a reference row.
 
 A span is a tuple ``(name, unit, t0, t1, thread)``. `unit` is the work
-unit's index, shared by every span of that unit, and None for the
-engine's own spans. `thread` is the name of the host thread that ran
-the span, or the device's name (``"cuda:0"``) for a device span.
+unit's index (the row's, in ``all2all_jax``), shared by every span of
+that unit, and None for the engine's own spans. `thread` is the name of
+the host thread that ran the span, or the device's name (``"cuda:0"``)
+for a device span.
 
 Device spans come from pairs of timing CUDA events recorded on the
 device's current stream around a stage. One anchor per device puts them

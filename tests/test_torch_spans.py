@@ -1,7 +1,8 @@
 """The cuda engine's spans (``ops/spans.py``): recorded only under a
 running torch profiler, one set per work unit
 under the unit's id, inside the engine's loop, adding up to the engine's
-counters, and leaving the outputs as they are; the benchmark's readers
+counters, and leaving the outputs as they are; the automaton backend's
+(``all2all_jax``), one set per reference row; the benchmark's readers
 of them, on a traced run of the harness on the CPU and on made-up
 traces. The device spans' clock is checked on a card (marked ``cuda``)."""
 import contextlib
@@ -21,6 +22,7 @@ from lzani_tpu_torch import cli as tcli
 from lzani_tpu_torch import synth
 from lzani_tpu_torch.matcher import Matcher
 from lzani_tpu_torch.ops import cuda_engine as tce
+from lzani_tpu_torch.ops import engine_jax as tej
 from lzani_tpu_torch.ops import spans as tsp
 from lzani_tpu_torch.params import Params
 from lzani_tpu_torch.synth import mutate, write_fasta
@@ -379,6 +381,149 @@ def test_the_long_genome_readers_sum_their_spans(capsys):
     assert "parse_big_kernel 0.9 s" in err
 
 
+#: the automaton backend's host spans, once a batch under the row's index
+ROW_SPANS = ("row.index", "row.args", "row.launch", "row.download")
+#: the automaton cell's readers of spans, and the span each one sums
+AUTOMATON_SPAN_METRICS = {"automaton.index_s": "row.index",
+                          "automaton.download_s": "row.download",
+                          "kernels.row_parse_device_s": "dev.kernel",
+                          "kernels.fold_device_s": "dev.fold"}
+
+
+def _no_spans(*a, **kw):
+    raise AssertionError("a span list was made with spans off")
+
+
+def test_automaton_spans_are_off_by_default(monkeypatch):
+    """Without a profiler ``all2all_jax`` makes no CUDA event, no span
+    list and no ``spans`` key."""
+    monkeypatch.setattr(torch.cuda, "Event", _NoEvent)
+    monkeypatch.setattr(tej, "Spans", _no_spans)
+    monkeypatch.setattr(tej, "UnitSpans", _no_spans)
+    st = {}
+    codes = synth.small_family()
+    tej.all2all_jax(codes, Params(), device=CPU, stats=st)
+    assert "spans" not in st and st["rows"] == len(codes)
+
+
+def _traced_jax(codes, p, **kw):
+    st = {}
+    with profile(activities=[ProfilerActivity.CPU]):
+        out = tej.all2all_jax(codes, p, device=CPU, stats=st, **kw)
+    return out, st
+
+
+@pytest.mark.parametrize("device", [CPU, [CPU, CPU]])
+def test_each_row_has_its_automaton_spans_in_order(device):
+    """Under a profiler, each row with a query records ``row.index`` once
+    and ``row.args``, ``row.launch``, ``row.download`` once a shard (two
+    shards a batch over two entries), in that order on the main thread,
+    under the row's index; on the CPU no device span and, with no
+    capacity fallback, no ``row.fallback``. The triples equal an untraced
+    run's."""
+    codes = synth.small_family()
+    p = Params()
+    off = tej.all2all_jax(codes, p, device=CPU)
+    st = {}
+    with profile(activities=[ProfilerActivity.CPU]):
+        on = tej.all2all_jax(codes, p, device=device, stats=st)
+    assert np.array_equal(on, off)
+    sp = st["spans"]
+    shards = 1 if device is CPU else 2
+    assert st["rows"] == len(codes) and st["cap_fallbacks"] == 0
+    assert {s[1] for s in sp} == set(range(len(codes)))
+    assert all(len(s) == 5 and s[2] <= s[3] and s[4] == "MainThread"
+               for s in sp)
+    assert not [s for s in sp if s[0].startswith("dev.")
+                or s[0] == "row.fallback"]
+    for r in range(len(codes)):
+        row = [s for s in sp if s[1] == r]
+        names = [s[0] for s in row]
+        assert names == ["row.index"] + ["row.args", "row.launch"] * shards \
+            + ["row.download"] * shards, (r, names)
+        assert all(a[3] <= b[2] for a, b in zip(row, row[1:])), r
+    rows = sorted(sp, key=lambda s: s[2])
+    assert [s[1] for s in rows] == sorted(s[1] for s in rows)
+
+
+def test_automaton_fallbacks_have_their_span(monkeypatch):
+    """Logs over the event cap are parsed natively after the download:
+    one ``row.fallback`` for each row that has a fallback, after the
+    row's ``row.download``."""
+    monkeypatch.setattr(tej.CudaRefIndex, "MAXEV", 18)
+    codes = synth.small_family()
+    out, st = _traced_jax(codes, Params())
+    assert np.array_equal(out, tej.all2all_jax(codes, Params(), device=CPU))
+    assert st["cap_fallbacks"] > 0
+    fb = [s for s in st["spans"] if s[0] == "row.fallback"]
+    assert 0 < len(fb) <= st["cap_fallbacks"]
+    assert len({s[1] for s in fb}) == len(fb)
+    for s in fb:
+        down = next(d for d in st["spans"]
+                    if d[0] == "row.download" and d[1] == s[1])
+        assert down[3] <= s[2], s
+
+
+def test_the_automaton_readers_sum_their_spans():
+    """Each reader sums its spans a job and takes the mean over the jobs
+    that have spans; a program whose automaton backend records none
+    reads None."""
+    def spans(t, scale):
+        return [(name, r, t + 0.1 * r, t + 0.1 * r
+                 + scale * 0.01 * (i + 1), "cuda:0")
+                for i, name in enumerate(AUTOMATON_SPAN_METRICS.values())
+                for r in range(3)]
+
+    run = _Run([_Job({"spans": spans(0.0, 1)}), _Job({"spans": spans(4.0, 3)}),
+                _Job({"fold_pairs": 10})])
+    for i, m in enumerate(AUTOMATON_SPAN_METRICS):
+        # 3 spans of 0.01 * (i + 1) a job at scale 1, three times at 3
+        assert _reader(m)(run) == pytest.approx(0.06 * (i + 1)), m
+        assert _reader(m)(_Run([_Job({"fold_pairs": 10})])) is None, m
+
+
+def test_the_automaton_roofline_reads_its_two_kernels(capsys):
+    """``kernels.automaton_roofline`` counts ``all_pairs_work`` scaled by
+    ``fold_pairs`` over the union of the intervals named
+    ``parse_group_kernel`` or ``fold_kernel`` inside the matching phases;
+    None without a trace, without folded pairs, without a peak for the
+    device or without an interval of those kernels."""
+    lengths = [[20_000, 35_000, 58_000, 41_000], [22_000, 57_000, 30_000]]
+    jobs = [_big_job(0.0, 0, 0), _big_job(4.0, 1, 0)]
+    jobs[0].stats = {"fold_pairs": 10}
+    jobs[1].stats = {"fold_pairs": 6}
+    parse = "void parse_group_kernel<true>(unsigned int const*, int)"
+    fold = "void fold_kernel(unsigned int const*, int)"
+    # job 0's matching [0.5, 3.5): parse [1.0, 1.2), fold [1.1, 1.4)
+    # (overlapping: 0.4 s), fold [2.0, 2.3); the fold at 3.6 is in its
+    # store, the long-genome kernel and the copy are other operations;
+    # job 1's matching [4.5, 7.5): parse [5.0, 5.4), fold [5.4, 5.5)
+    tr = Trace([1.0, 1.1, 2.0, 3.6, 5.0, 5.4, 5.0, 6.0],
+               [1.2, 1.4, 2.3, 3.8, 5.4, 5.5, 5.9, 6.5],
+               [parse, fold, fold, fold, parse, fold, "parse_big_kernel",
+                "Memcpy DtoH"], 0.0, 8.0)
+    read = _reader("kernels.automaton_roofline")
+    compares = nbytes = 0.0
+    for job in jobs:
+        c, b, pairs = work.all_pairs_work(lengths[job.coll])
+        folded = job.stats["fold_pairs"]
+        compares += c * folded / pairs
+        nbytes += b - 12 * (pairs - folded)
+    least, _ = work.least_seconds(compares, nbytes, work.peaks(H100))
+    assert read(_BigRun(jobs, tr, lengths)) == pytest.approx(
+        100.0 * least / 1.2)
+    err = capsys.readouterr().err
+    assert f"{compares:.6g} compares, {nbytes:.6g} bytes" in err
+    assert "parse_group_kernel + fold_kernel 1.2 s" in err
+    unfolded = [_big_job(0.0, 0, 0)]
+    unfolded[0].stats = {"fold_pairs": 0}
+    other = Trace([1.0], [1.5], ["parse_big_kernel"], 0.0, 8.0)
+    for run in (_BigRun(jobs, None, lengths), _BigRun(unfolded, tr, lengths),
+                _BigRun(jobs, tr, lengths, "cpu"),
+                _BigRun(jobs, other, lengths)):
+        assert read(run) is None
+
+
 # --- on a card -------------------------------------------------------------
 
 @pytest.mark.cuda
@@ -414,4 +559,37 @@ def test_device_spans_share_the_hosts_clock(monkeypatch):
     monkeypatch.setattr(torch.cuda, "Event", _NoEvent)
     st2 = {}
     out = tce.all2all_cuda(codes, p, device=dev, stats=st2)
+    assert "spans" not in st2 and np.array_equal(out, ref)
+
+
+@pytest.mark.cuda
+def test_automaton_device_spans_share_the_hosts_clock(monkeypatch):
+    """On a card each row's parse (``dev.kernel``) and fold (``dev.fold``)
+    lie, in that order, inside the row's host interval from the start of
+    its ``row.launch`` to the end of its ``row.download``, to 0.2 ms; with
+    spans off no CUDA event is made and the triples are the same."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda", 0)
+    _, codes = synth.viral_set(seed=5, n=24)
+    p = Params()
+    st = {}
+    with profile():
+        ref = tej.all2all_jax(codes, p, device=dev, stats=st)
+    assert st["rows"] == len(codes)
+    for r in range(len(codes)):
+        u = {}
+        for s in st["spans"]:
+            if s[1] == r:
+                u.setdefault(s[0], []).append(s)
+        for name in ROW_SPANS + ("dev.kernel", "dev.fold"):
+            assert len(u.get(name, ())) == 1, (r, name)
+        (kern,), (fold,) = u["dev.kernel"], u["dev.fold"]
+        assert kern[4] == fold[4] == str(dev)
+        assert kern[2] >= u["row.launch"][0][2] - 2e-4, r
+        assert kern[3] <= fold[2] + 2e-4, r
+        assert fold[3] <= u["row.download"][0][3] + 2e-4, r
+    monkeypatch.setattr(torch.cuda, "Event", _NoEvent)
+    st2 = {}
+    out = tej.all2all_jax(codes, p, device=dev, stats=st2)
     assert "spans" not in st2 and np.array_equal(out, ref)
