@@ -32,7 +32,11 @@ non-zero):
      them, replayed with regions as one unit by the batched native entry
      (``UnitReplay``, ``lza_replay_unit``) and pair by pair
      (``Finalizer``): triples and region records (as a set) equal, both
-     timed;
+     timed; then the fold kernel on the same logs, masked as the main
+     path masks them without an aln file (``cuda_engine.fold_args``):
+     stats and status against its plain version (on the host CPU), the
+     stats of every replayed pair with a log against the batched
+     replay's triples, timed, with its bound and launch plan;
   4. the port's CLI (``python -m lzani_tpu_torch all2all ... --backend
      cuda``, driven in-process through ``cli.run``) on a seeded synthetic
      viral set: 256 genomes of 20-60 kb in 24 families plus 15% unrelated
@@ -45,7 +49,14 @@ non-zero):
   6. counters: kernel launches > 0 in the main path, no natively routed
      rows, no replay mismatches, capacity fallbacks under 1% of pairs; and
      200 sampled pairs' event logs against the native oracle;
-  7. wall times and pairs/s of both CLIs;
+ 6b. the main path as the benchmark's viral cells run it: the port's CLI
+     ``--backend cuda`` (in-process) without an aln file on the same
+     file, both kernels' counters set to 0 just before and read just
+     after: TSV and ids byte-equal to phase 5's, one fold launch a
+     dispatch, every kernel pair folded on the card, the replay pool
+     given only the capacity fallbacks, no replay mismatch;
+  7. wall times and pairs/s of both CLIs (cuda with and without an aln
+     file);
   Long-genome path (the tuned bacterial parameters mal 20, msl 11, reg 80;
   mal > 13 sends every row to the big kernel):
   8. big kernel = plain on two whole launches: a reduced one (8 genomes
@@ -93,9 +104,15 @@ non-zero):
   Several device entries and several processes:
  13. ``all2all_cuda(devices=[cuda:0, cuda:0])`` in-process on the first
      96 viral genomes (units round-robin over two entries on the one
-     card), the kernel's counter set to 0 just before and read just
-     after: triples equal to the native engine's, both entries ran units,
-     launches > 0 and equal to the engine's count, no replay mismatches;
+     card; no region file, so its group units fold), the kernel's and
+     the fold's counters set to 0 just before and read just after:
+     triples equal to the native engine's, both entries ran units,
+     launches > 0 and equal to the engine's count, one fold a dispatch,
+     every kernel pair folded, no replay mismatches; then the same over
+     the first 158 viral genomes with a 300 kb genome and its 1% relative
+     (the group route at LqP 2^19, B = 256, the fold's stack 4.3 GB a
+     launch), without and with a region file: triples equal to native,
+     and the peak device memory of each;
  14. the port's CLI as a two-process launch on the one card (the JAX
      package's JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES /
      JAX_PROCESS_ID, gloo on 127.0.0.1, ``-t 4`` each) on phase 4's viral
@@ -130,7 +147,10 @@ non-zero):
      likewise), equal to ``all2all_jax`` on the card and to the native
      engine, capacity fallbacks under 1%.
 Then the card's name and power limit, one JSON line of the kernels (time,
-plain time and bound of each, from this run; the group kernel's entry
+plain time and bound of each, from this run; the fold kernel's entry
+also has its launches on the cuda path (phases 6b and 13), its time,
+plain time, bound and launch plan at 4 x 256 and phase 13's memory at
+LqP 2^19; the group kernel's entry
 also has the hybrid, round-robin and two-process paths' launches, the
 launches of each instantiation, its ms at the three launch shapes of the
 main paths (4 x 256, 1 x 64, 1 x 255), the launches before phase 3's
@@ -265,7 +285,8 @@ def check_replay_unit(codes, params, k, td):
     replayed with regions twice: as one unit through the batched native
     entry (``UnitReplay``, one call) and pair by pair (``Finalizer``).
     The triples and the region records (as a set) must be equal. Returns
-    (pairs, records, pairs without a log, batched s, per-pair s)."""
+    (pairs, records, pairs without a log, batched s, per-pair s, (g, b,
+    triples) of the replayed pairs for ``check_fold``)."""
     import numpy as np
 
     from lzani_tpu_torch.core.native_engine import read_region_dump
@@ -306,7 +327,8 @@ def check_replay_unit(codes, params, k, td):
     if not out_u[pslot].any() or len(recs_u) != len(pr):
         raise AssertionError("phase 3's replay wrote no triple, or not one "
                              "region record a pair")
-    return len(pr), len(recs_u), int((nev < 0).sum()), t_u, t_p
+    return (len(pr), len(recs_u), int((nev < 0).sum()), t_u, t_p,
+            (pg, pb, out_u[pslot]))
 
 
 def check_device_words(args, ref, reps=3):
@@ -701,25 +723,29 @@ def check_auto(td, tag, extra, nthreads, rerun_native):
 
 
 def check_round_robin(dev, codes, params, kernel):
-    """Phase 13: ``all2all_cuda`` over two device entries on the one card
-    on `codes`, `kernel`'s counter set to 0 just before and read just
-    after; triples equal to the native engine's. Returns (stats,
-    launches, wall, native wall)."""
+    """Phase 13: ``all2all_cuda`` (no region file: its group units fold)
+    over two device entries on the one card on `codes`, `kernel`'s and
+    the fold's counters set to 0 just before and read just after;
+    triples equal to the native engine's, one fold a dispatch and every
+    kernel pair folded. Returns (stats, launches, fold launches, wall,
+    native wall)."""
     import copy
 
     import numpy as np
 
     from lzani_tpu_torch.core import native_engine as ne
     from lzani_tpu_torch.ops.cuda_engine import all2all_cuda
+    from lzani_tpu_torch.ops.fold_stats import fold_stats
 
     p = copy.copy(params)
     p.adjust_threads()
     st = {}
     set_launch_counts(kernel)
+    fold_stats.launches = 0
     t0 = time.perf_counter()
     got = all2all_cuda(codes, p, devices=[dev, dev], stats=st)
     wall = time.perf_counter() - t0
-    launches = kernel.launches
+    launches, folds = kernel.launches, fold_stats.launches
     t0 = time.perf_counter()
     want = ne.all2all(codes, p)
     t_native = time.perf_counter() - t0
@@ -736,7 +762,69 @@ def check_round_robin(dev, codes, params, kernel):
     if st["replay_mismatches"] or st["native_rows"]:
         raise AssertionError(f"replay mismatches {st['replay_mismatches']}, "
                              f"native rows {st['native_rows']}")
-    return st, launches, wall, t_native
+    if folds != st["dispatches"] or st["fold_pairs"] != st["kernel_pairs"]:
+        raise AssertionError(f"round-robin path folded {folds} times in "
+                             f"{st['dispatches']} dispatches, "
+                             f"{st['fold_pairs']} of {st['kernel_pairs']} "
+                             f"kernel pairs")
+    return st, launches, folds, wall, t_native
+
+
+def check_fold_memory(dev, codes, params, td):
+    """Phase 13b: the group route at the largest query bucket it takes,
+    LqP 2^19: ``all2all_cuda`` over two device entries on the one card on
+    `codes` (B = 256) with a 300 kb genome and its 1% relative added (a
+    composite of 600,120 symbols: still the group route), with no region
+    file (its units fold: the fold's stack is G x B x (LqP + 4) x 8
+    bytes a launch) and with one (the host replay); the peak device
+    memory of each, triples equal to the native engine's, every kernel
+    pair folded in the first and none in the second. Returns (LqP, B,
+    peak folding, peak replaying, a fold stack's bytes, stats folding)."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from lzani_tpu_torch import synth
+    from lzani_tpu_torch.core import native_engine as ne
+    from lzani_tpu_torch.ops.cuda_engine import CudaAll2All, all2all_cuda
+    from lzani_tpu_torch.ops.fold_stats import fold_stats
+
+    rng = np.random.RandomState(29)
+    big = rng.randint(0, 4, 300_000).astype(np.uint8)
+    codes = list(codes) + [big, synth.mutate(rng, big, 0.01, n_ns=3,
+                                              indels=10)]
+    p = copy.copy(params)
+    p.adjust_threads()
+    want = ne.all2all(codes, p)
+    eng = CudaAll2All(codes, p, devices=[dev])
+    LqP, B, G = eng.LqP, eng.B, CudaAll2All.GROUP
+    if LqP != 1 << 19 or B != 256 or set(eng.paths) != {"group"}:
+        raise AssertionError(f"fold memory set: LqP {LqP}, B {B}, paths "
+                             f"{set(eng.paths)}")
+    del eng
+    peaks, stats = [], []
+    for region in (None, os.path.join(td, "fold_memory.bin")):
+        st = {}
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        folds0 = fold_stats.launches
+        got = all2all_cuda(codes, p, devices=[dev, dev], stats=st,
+                           region_path=region)
+        peaks.append(torch.cuda.max_memory_allocated(dev))
+        folds = fold_stats.launches - folds0
+        if not np.array_equal(got, want):
+            raise AssertionError(f"LqP 2^19 run (region file {region}): "
+                                 f"triples differ from native")
+        folded = st["dispatches"] if region is None else 0
+        if (folds != folded or st["replay_mismatches"]
+                or st["fold_pairs"] != (st["kernel_pairs"] if region is None
+                                        else 0)):
+            raise AssertionError(f"LqP 2^19 run (region file {region}): "
+                                 f"{folds} folds, engine {st}")
+        stats.append(st)
+    return LqP, B, peaks[0], peaks[1], G * B * (LqP + 4) * 8, stats[0]
 
 
 def two_process_cli(td, tag, backend, nthreads):
@@ -898,27 +986,39 @@ def jax_row_batch(dev, codes, params, reps=3):
                 bound_ms=bound, bound_by=bound_by, oracle=checked)
 
 
-def check_fold(batch, ref, queries, params, factors, reps=3):
-    """Phase 15a: the fold kernel against its plain version (on the host
-    CPU) on the logs of a parse launch (`batch`: its arguments, overflow
-    flags, ev and nev), masked as ``RefIndexJax.dispatch`` masks them: as
-    the main path calls it (no factors; CUDA events, the mean of `reps`
-    launches after one that serves the comparison) and, with `factors`,
-    once with factors. Stats, status (and factor counts and factors) must
-    be equal, every pair with a log must have status 0 and its stats must
-    equal the native engine's (`ref` x `queries`). The counter is
-    restored: these launches do not count."""
+def native_triples(ref, queries, params):
+    """(g, b, triples) of a G = 1 launch of `ref` x `queries`: the native
+    engine's triple of each pair, for ``check_fold``."""
+    import numpy as np
+
+    from lzani_tpu_torch.core import native_engine as ne
+
+    tri = np.array([ne.parse_pair(ref, q, params)[0] for q in queries],
+                   np.int32).reshape(-1, 3)
+    return np.zeros(len(queries), np.int64), np.arange(len(queries)), tri
+
+
+def check_fold(batch, want, factors, reps=3):
+    """Phase 3e (phase 15a): the fold kernel against its plain version (on
+    the host CPU) on the logs of a parse launch (`batch`: its arguments,
+    overflow flags, ev and nev), masked as the main path masks them
+    (``cuda_engine.fold_args``): as the main path calls it (no factors;
+    CUDA events, the mean of `reps` launches after one that serves the
+    comparison) and, with `factors`, once with factors. Stats, status (and
+    factor counts and factors) must be equal, every pair with a log must
+    have status 0, and the stats of the pairs `want` names ((g, b,
+    triples) arrays) must equal its triples: the native engine's, or the
+    host replay's of the same logs. The counter is restored: these
+    launches do not count."""
     import numpy as np
     import torch
 
-    from lzani_tpu_torch.core import native_engine as ne
+    from lzani_tpu_torch.ops.cuda_engine import fold_args
     from lzani_tpu_torch.ops.fold_stats import fold_stats, fold_stats_plain
     from lzani_tpu_torch.utils.runinfo import fold_bound_ms
 
-    args, ev, nev = batch["args"], batch["ev"], batch["nev"]
-    refbuf, qbuf, _, _, _, _, dsz, nrs, cfg, cap = args
-    skip = batch["overflow"] | (nev < 0) | (nev > cap)
-    fargs = (refbuf, qbuf, ev, torch.where(skip, -1, nev), dsz, nrs, cfg)
+    skip, fargs = fold_args(batch["args"], batch["ev"], batch["nev"],
+                            batch["overflow"])
     launches0 = fold_stats.launches
     stats, status = fold_stats(*fargs)
     if factors:
@@ -942,28 +1042,31 @@ def check_fold(batch, ref, queries, params, factors, reps=3):
             raise AssertionError("fold kernel: factor counts differ from "
                                  "the plain version")
         k = int(nfac.max())
-        fk, pk = fac[0, :, :k].cpu().numpy(), p_fac[0, :, :k].numpy()
-        defined = np.arange(k)[None, :] < nfac[0].numpy()[:, None]
+        fk, pk = fac[:, :, :k].cpu().numpy(), p_fac[:, :, :k].numpy()
+        defined = np.arange(k) < nfac.numpy()[..., None]
         err = int(np.abs(fk[defined].astype(np.int64) - pk[defined]).max(
             initial=0))
         if err:
             raise AssertionError(f"fold kernel: factors differ from the "
                                  f"plain version (max abs err {err})")
         n_fac = int(nfac.sum())
-    skipped = skip[0].cpu().numpy()
-    want_status = np.where(skipped, 1, 0)
-    if not np.array_equal(status[0].numpy(), want_status):
-        raise AssertionError(f"fold kernel status {status[0].tolist()}")
-    for b in np.flatnonzero(~skipped):
-        want = ne.parse_pair(ref, queries[b], params)[0]
-        if tuple(stats[0, b].tolist()) != want:
-            raise AssertionError(f"fold kernel: pair {b} of the launch "
-                                 f"differs from the native engine")
-    bound, bound_by = fold_bound_ms(ev, fargs[3], 1, qbuf.shape[0])
-    return dict(pairs=int(nev.numel()), skipped=int(skipped.sum()),
-                factors=n_fac, ms=ms, plain_ms=plain_ms, max_abs_err=err,
-                bound_ms=bound, bound_by=bound_by, plain_on="cpu",
-                fargs=fargs, plain=(p_stats, p_status, p_fac, p_nfac)
+    skipped = skip.cpu().numpy()
+    if not np.array_equal(status.numpy(), np.where(skipped, 1, 0)):
+        raise AssertionError(f"fold kernel status {status.tolist()}")
+    g, b, tri = want
+    kept = ~skipped[g, b]
+    bad = np.flatnonzero((stats.numpy()[g, b] != tri).any(-1) & kept)
+    if len(bad):
+        raise AssertionError(f"fold kernel: pairs (g, b) "
+                             f"{list(zip(g[bad][:5], b[bad][:5]))} of the "
+                             f"launch differ from the reference triples")
+    G, B = skipped.shape
+    bound, bound_by = fold_bound_ms(batch["ev"], fargs[3], G, B)
+    return dict(pairs=int(skipped.size), skipped=int(skipped.sum()),
+                checked=int(kept.sum()), G=G, B=B, factors=n_fac, ms=ms,
+                plain_ms=plain_ms, max_abs_err=err, bound_ms=bound,
+                bound_by=bound_by, plain_on="cpu", fargs=fargs,
+                plain=(p_stats, p_status, p_fac, p_nfac)
                 if factors else None)
 
 
@@ -1052,6 +1155,21 @@ def fold_probe_heaviest(fk):
     return out
 
 
+def fold_plan(dev, G, B, LrP, LqP):
+    """The fold kernel's launch plan for G x B pairs at buckets LrP / LqP
+    on `dev`: shared bytes, the reference's and the queries' planes in
+    shared memory or not, warps a block, blocks a reference, its ring and
+    the blocks an SM holds."""
+    from lzani_tpu_torch.ops import fold_stats
+    from lzani_tpu_torch.ops.parse_kernel import sm_count
+
+    plan = fold_stats.launch_plan(G, B, LrP, LqP, sm_count(dev),
+                                  fold_stats.smem_limit(dev))
+    return dict(smem=plan[0], ref_smem=plan[1], q_smem=plan[2],
+                warps=plan[3], blocks_per_ref=plan[4], ring=fold_stats.RING,
+                blocks_per_sm_max=fold_stats.occupancy(plan[0], plan[3]))
+
+
 def counted(fn):
     """Run `fn` with both kernels' counters set to 0 just before and read
     just after: (its result, wall s, parse launches, fold launches)."""
@@ -1095,6 +1213,46 @@ def check_jax_cli(td, tag, nthreads, n_pairs):
                              f"{folds} times (engine counted "
                              f"{st['launches']} and {st['fold_launches']})")
     check_jax_stats("jax CLI", st, n_pairs)
+    return m, wall, launches, folds
+
+
+def check_fold_cli(td, tag, nthreads, n_pairs):
+    """Phase 6b: the main path as the benchmark's viral cells run it: the
+    port's CLI --backend cuda (in-process) without an aln file on the
+    FASTA of `tag`, both kernels' counters set to 0 just before and read
+    just after; TSV and ids byte-equal to the native run of the same
+    FASTA, one fold launch a dispatch (as many as parse launches), every
+    kernel pair folded, the pool given only the capacity fallbacks, no
+    replay mismatch. Returns (matcher, wall, parse launches, fold
+    launches)."""
+    from lzani_tpu_torch import cli
+
+    fa = os.path.join(td, f"{tag}.fna")
+    out = os.path.join(td, f"{tag}_fold.tsv")
+    argv = ["all2all", "--in-fasta", fa, "--out", out, "-t", nthreads, "-V",
+            "1", "--backend", "cuda"]
+    (rc, m), wall, launches, folds = counted(lambda: cli.run(argv))
+    if rc != 0:
+        raise RuntimeError(f"port CLI --backend cuda (no aln) exited {rc}")
+    native = os.path.join(td, f"{tag}_native")
+    for suffix in (".tsv", ".ids.tsv"):
+        with open(out[:-4] + suffix, "rb") as a, \
+                open(native + suffix, "rb") as b:
+            if a.read() != b.read():
+                raise AssertionError(f"{tag} --backend cuda, no aln: "
+                                     f"{suffix} differs from native")
+    st = m.engine_stats
+    if (launches <= 0 or folds != launches or st["launches"] != launches
+            or st["dispatches"] != folds):
+        raise AssertionError(f"cuda path without aln launched parse "
+                             f"{launches} and fold {folds} times (engine "
+                             f"counted {st['launches']} launches, "
+                             f"{st['dispatches']} dispatches)")
+    if (st["fold_pairs"] != st["kernel_pairs"] or st["replay_mismatches"]
+            or st["replay_pairs"] != st["cap_fallbacks"]
+            or st["kernel_pairs"] + st["cap_fallbacks"] != n_pairs
+            or st["cap_fallbacks"] >= 0.01 * n_pairs):
+        raise AssertionError(f"cuda path without aln: engine stats {st}")
     return m, wall, launches, folds
 
 
@@ -1183,7 +1341,6 @@ def main() -> int:
     from lzani_tpu_torch.ops import fold_stats
     from lzani_tpu_torch.ops.build import build_report
     from lzani_tpu_torch.ops.parse_kernel import load as load_kernels
-    from lzani_tpu_torch.ops.parse_kernel import sm_count
     from lzani_tpu_torch.ops.parse_kernel import (occupancy, parse_events,
                                                   parse_events_big,
                                                   parse_events_plain)
@@ -1251,6 +1408,16 @@ def main() -> int:
            f"triples equal, {ru[1]} region records equal as a set; "
            f"{ru[3]:.3f} s batched (one thread) against {ru[4]:.3f} s per "
            f"pair [{smi}]")
+    f3 = check_fold(k, ru[5], factors=False)
+    f3["plan"] = fold_plan(dev, f3["G"], f3["B"], k["LrP"], k["LqP"])
+    say(3, f"fold kernel on the same dispatch's logs, as the main path "
+           f"folds them without an aln file (G={f3['G']}, B={f3['B']}, "
+           f"LrP={k['LrP']}, LqP={k['LqP']}): == plain (stats, status: "
+           f"{f3['skipped']} skipped), the stats of {f3['checked']} pairs "
+           f"equal to the batched replay's triples; kernel {f3['ms']:.3f} "
+           f"ms, plain {f3['plain_ms']:.1f} ms (host CPU), bound "
+           f"{f3['bound_ms']:.5f} ms ({f3['bound_by']}); launch plan "
+           f"{json.dumps(f3['plan'])} [{smi}]")
 
     nthreads = str(os.cpu_count() or 1)
     n_pairs = N_GENOMES * (N_GENOMES - 1)
@@ -1298,9 +1465,25 @@ def main() -> int:
                f"cap fallbacks {st['cap_fallbacks']}/{n_pairs}; {checked} "
                f"sampled pairs' event logs equal the oracle ({fb} capacity "
                f"fallbacks)")
+        fm, t_fold, f_launches, f_folds = check_fold_cli(td, "viral",
+                                                         nthreads, n_pairs)
+        fs_ = fm.engine_stats
+        say("6b", f"port CLI --backend cuda without an aln file (the "
+                  f"benchmark's viral cells): {t_fold:.2f} s, TSV and ids "
+                  f"byte-equal to native; parse launches {f_launches}, fold "
+                  f"launches {f_folds} = dispatches, fold pairs "
+                  f"{fs_['fold_pairs']} = kernel pairs, pool pairs "
+                  f"{fs_['replay_pairs']} = capacity fallbacks, replay "
+                  f"mismatches 0; dispatch {fs_['dispatch_s']:.2f} s, "
+                  f"download {fs_['download_s']:.2f} s (its sync "
+                  f"{fs_['download_sync_s']:.2f} s), replay tail "
+                  f"{fs_['replay_tail_s']:.3f} s; phases: "
+                  f"{phase_times(fm.times)} [{smi}]")
         say(7, f"wall: port cuda {t_cuda:.2f} s ({n_pairs / t_cuda:.1f} "
-               f"pairs/s), port native {t_native:.2f} s "
-               f"({n_pairs / t_native:.1f} pairs/s), -t {nthreads} [{smi}]")
+               f"pairs/s) with an aln file, {t_fold:.2f} s "
+               f"({n_pairs / t_fold:.1f} pairs/s) without, port native "
+               f"{t_native:.2f} s ({n_pairs / t_native:.1f} pairs/s), -t "
+               f"{nthreads} [{smi}]")
 
         # ---- long-genome path ----------------------------------------
         # the Matcher parses longest first: the same order here
@@ -1424,13 +1607,27 @@ def main() -> int:
 
         # ---- several device entries, several processes -------------
         t_mp0 = time.perf_counter()
-        rs, rr_launches, t_rr, t_rr_nat = check_round_robin(
+        rs, rr_launches, rr_folds, t_rr, t_rr_nat = check_round_robin(
             dev, codes[:96], params, parse_events)
         say(13, f"all2all_cuda(devices=[{dev}, {dev}]) on the first 96 "
                 f"viral genomes: {t_rr:.2f} s against native "
                 f"{t_rr_nat:.2f} s; triples equal; units per entry "
-                f"{rs['device_units']}, launches {rr_launches}, replay "
-                f"mismatches 0 [{smi}]")
+                f"{rs['device_units']}, launches {rr_launches}, fold "
+                f"launches {rr_folds} = dispatches, fold pairs "
+                f"{rs['fold_pairs']} = kernel pairs, replay mismatches 0 "
+                f"[{smi}]")
+        (m_LqP, m_B, peak_fold, peak_replay, stack,
+         ms_) = check_fold_memory(dev, codes[:158], params, td)
+        fold_mem = dict(LqP=m_LqP, G=4, B=m_B, entries=2,
+                        peak_fold_bytes=peak_fold,
+                        peak_replay_bytes=peak_replay, stack_bytes=stack)
+        say(13, f"all2all_cuda(devices=[{dev}, {dev}]) at LqP {m_LqP} (the "
+                f"first 158 viral genomes, a 300 kb genome and its 1% "
+                f"relative; G=4 x B={m_B}): triples equal to native with and "
+                f"without a region file; folding {ms_['dispatches']} "
+                f"dispatches, peak device memory {peak_fold} bytes, "
+                f"replaying on the host {peak_replay} bytes; a fold stack "
+                f"{stack} bytes (G x B x (LqP + 4) x 8) [{smi}]")
         mp_launches = {}
         for backend in ("cuda", "auto"):
             res = two_process_cli(td, "viral", backend, "4")
@@ -1453,7 +1650,8 @@ def main() -> int:
 
         # ---- automaton backend (--backend jax) ------------------------
         t_p15 = time.perf_counter()
-        f64 = check_fold(rr["batch"], codes[0], codes[:64], params,
+        f64 = check_fold(rr["batch"],
+                         native_triples(codes[0], codes[:64], params),
                          factors=True)
         say(15, f"fold kernel == plain on phase 10's launch (G=1, "
                 f"B={f64['pairs']}, LqP={rr['batch']['LqP']}): stats, "
@@ -1470,15 +1668,10 @@ def main() -> int:
                 f"all {n_rej} pairs with records rejected (status -1, no "
                 f"stats), equal to the plain version [{smi}]")
         jb = jax_row_batch(dev, codes, params)
-        fk = check_fold(jb, codes[0], jb["queries"], params, factors=False)
-        fplan = fold_stats.launch_plan(
-            1, jb["B"], jb["args"][0].shape[1], jb["LqP"], sm_count(dev),
-            fold_stats.smem_limit(dev))
-        fplan = dict(smem=fplan[0], ref_smem=fplan[1], q_smem=fplan[2],
-                     warps=fplan[3], blocks_per_ref=fplan[4],
-                     ring=fold_stats.RING,
-                     blocks_per_sm_max=fold_stats.occupancy(fplan[0],
-                                                           fplan[3]))
+        fk = check_fold(jb, native_triples(codes[0], jb["queries"], params),
+                        factors=False)
+        fplan = fold_plan(dev, 1, jb["B"], jb["args"][0].shape[1],
+                          jb["LqP"])
         fheavy = fold_probe_heaviest(fk)
         say(15, f"the jax path's launch of row 0 (G=1, B={jb['B']}, LqP="
                 f"{jb['LqP']}, queries from the resident matrix): parse "
@@ -1580,7 +1773,13 @@ def main() -> int:
          "source": "lzani_tpu_torch/csrc/fold_stats.cu",
          "replaces": "lzani_tpu/ops/parse.py:536",
          "also_replaces": ["lzani_tpu/ops/parse.py:78"],
-         "launches": j_folds, "mesh_launches": m_folds, "G": 1,
+         "launches": j_folds, "mesh_launches": m_folds,
+         "cuda_launches": f_folds, "round_robin_launches": rr_folds,
+         "ms_by_shape": {"4x256": f3["ms"], "1x255": fk["ms"],
+                         "1x64": f64["ms"]},
+         "plain_ms_4x256": f3["plain_ms"], "bound_ms_4x256": f3["bound_ms"],
+         "bound_by_4x256": f3["bound_by"], "launch_plan_4x256": f3["plan"],
+         "memory_lqp_2e19": fold_mem, "G": 1,
          "B": jb["B"], "max_abs_err": fk["max_abs_err"], "ms": fk["ms"],
          "plain_ms": fk["plain_ms"], "plain_on": fk["plain_on"],
          "bound_ms": fk["bound_ms"], "bound_by": fk["bound_by"],

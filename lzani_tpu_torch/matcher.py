@@ -131,10 +131,19 @@ class Matcher:
         def setup():
             from .core import native_engine
             from .ops import fold_stats, parse_kernel
+            from .ops.cuda_engine import CudaAll2All
+            from .ops.parse import ParseCfg
 
             torch.empty(1, device=dev)
             parse_kernel.load()
-            if backend == "jax":
+            # the jax backend folds every row; the cuda backend folds its
+            # group units where no aln file is asked, and a min anchor
+            # length over 13 sends every row to the long-genome route
+            if backend == "jax" or (
+                    not self.params.output_alignment_file_name
+                    and CudaAll2All.big_only_reason(
+                        CudaAll2All.MAX_Q,
+                        ParseCfg.from_params(self.params).mal) is None):
                 fold_stats.load()
             native_engine.get_lib()
 

@@ -17,11 +17,15 @@ MAX_BIG_SYMS, the native engine. ``all2all_cuda`` plans the run
 (``plan.py``) and drives each unit through its route: a group's index
 built once on the device, a unit's prep and launch, its logs downloaded
 compacted (``EventLogs``) and replayed by one native call on a thread
-pool (``finalize.UnitReplay``). The per-reference API runs on the group
+pool (``finalize.UnitReplay``). A group unit of a run that writes no
+regions has its logs folded into triples on the device instead
+(``GroupRoute.fold``, the fold kernel ``fold_stats``) and downloads
+only those (``FoldedLogs``). The per-reference API runs on the group
 route with G = 1: ``CudaRefIndex`` (``PallasRefIndex``) and
 ``CudaAll2All.dispatch_range`` / ``collect`` / ``run_range``. All is
-plain PyTorch on an explicit ``torch.device`` but the two hand-written
-kernels, ``parse_kernel.parse_events`` and ``parse_events_big``.
+plain PyTorch on an explicit ``torch.device`` but the hand-written
+kernels, ``parse_kernel.parse_events``, ``parse_events_big`` and
+``fold_stats.fold_stats``.
 """
 
 from __future__ import annotations
@@ -39,6 +43,7 @@ from ..io.packing import pack_items
 from .anchor_tables import SAT, win_words
 from .big import big_query_prep, big_ref_join
 from .finalize import UnitReplay
+from .fold_stats import fold_stats
 from .parse import ParseCfg
 from .parse_kernel import parse_events, parse_events_big
 from .plan import Layout, Plan, route_rows
@@ -226,6 +231,19 @@ def group_kernel_args(idx, q_rows, dsz, LqP: int, cfg, cap: int):
         q_rows, dsz, idx.ptab, LqP, cfg.mal, cfg.msl, CudaAll2All.CNT_CAP)
     return ((idx.refbuf, qbuf, idx.poslist, cand, next_hit, idx.win,
              dsz.contiguous(), idx.nrs, cfg, cap), overflow)
+
+
+def fold_args(args, ev, nev, overflow):
+    """(the (G, B) flags of the pairs without a log, the arguments of
+    ``fold_stats``) for a group launch's logs (`args` its
+    ``group_kernel_args``, `ev` / `nev` its logs, `overflow` its flags).
+    A pair has no log where its query row had an anchor bucket over
+    CNT_CAP, nev < 0 or nev is over the cap; it goes to the fold with
+    nev = -1 and is parsed natively."""
+    refbuf, qbuf, _, _, _, _, dsz, nrs, cfg, cap = args
+    skip = overflow | (nev < 0) | (nev > cap)
+    return skip, (refbuf, qbuf, ev, torch.where(skip, -1, nev), dsz, nrs,
+                  cfg)
 
 
 # ---- envelope and routing --------------------------------------------------
@@ -599,7 +617,9 @@ class _Route:
     `qidx`; device tensors (ev, nev[, overflow flags]), nothing
     synchronised; `spans` records ``unit.prep`` / ``dev.prep`` and
     ``unit.launch`` / ``dev.kernel``), ``collect`` (the download),
-    ``tally`` (its counters), ``replay_threads`` (a unit's replay's)."""
+    ``tally`` (its counters), ``finish`` (a drained unit's counters and
+    its pairs left to the replay pool), ``replay_threads`` (a unit's
+    replay's)."""
 
     label = pairs_key = fallbacks_key = ""
 
@@ -612,6 +632,18 @@ class _Route:
         anchor bucket over CNT_CAP (a group dispatch's overflow flags)."""
         ev, nev, *overflow = handles
         return _download_logs(ev, nev, self.ev_cap, *overflow, spans=spans)
+
+    def finish(self, st: dict, got, pairs, out, rejected: list):
+        """A drained unit's counters in `st` (``tally``, ``fold_pairs``)
+        and the arguments of its ``UnitReplay`` call, or None where no
+        pair is left to the pool: `got` the unit's download (``EventLogs``
+        or ``FoldedLogs``: ``FoldedLogs.settle`` writes its triples into
+        `out`, the run's (slots, 3) triples, and its rejected logs' (r, q)
+        into `rejected`), `pairs` the unit's (g, r, q, slot, b) arrays."""
+        nev, unit, folded = got.settle(pairs, out, rejected)
+        self.tally(st, pairs[1], pairs[2], nev)
+        st["fold_pairs"] += folded
+        return unit
 
     def tally(self, st: dict, pr, pq, nev):
         """Count a drained unit's pairs ((r, q) arrays `pr`, `pq`, log
@@ -631,10 +663,15 @@ class GroupRoute(_Route):
     """The group route (``_get_group_step``): GROUP references a group,
     the last padded with dummy slots, a ``GroupIndex``, B queries a unit
     (a sparse filter's wanted queries gathered), the group kernel; a
-    unit is one of many, replayed on one thread."""
+    unit is one of many, replayed on one thread. Where ``fold`` is set
+    (``all2all_cuda`` without a region file), a unit's logs are folded on
+    its device instead (``fold_stats``) and only the triples come back
+    (``FoldedLogs``); a region file needs the factor list, which only the
+    host replay gives."""
 
     label, pairs_key, fallbacks_key = ("group path", "kernel_pairs",
                                        "cap_fallbacks")
+    fold = False
     ev_cap = property(lambda self: self.eng.EV_CAP)
     width = property(lambda self: self.eng.B)
 
@@ -661,12 +698,29 @@ class GroupRoute(_Route):
         return group_kernel_args(idx, *qrows, eng.LqP, eng.cfg, eng.EV_CAP)
 
     def dispatch(self, idx, r_list, lo, device=None, qidx=None, spans=OFF):
-        """`r_list` is unread: `idx` holds the group."""
+        """`r_list` is unread: `idx` holds the group. With ``fold``, the
+        fold runs on the parse's stream right after it (``dev.fold``) and
+        the handle is one (G, B, 5) int32 block: each pair's triple, the
+        fold's status (0 ok, -1 a log it rejects) and its skip flag (1: no
+        log, parsed natively)."""
         qrows = None if qidx is None else self.eng.gather_qrows(qidx, device)
         with spans.span("unit.prep"), spans.stage("dev.prep"):
             args, overflow = self.args(idx, lo, device, qrows)
-        with spans.span("unit.launch"), spans.stage("dev.kernel"):
-            return (*parse_events(*args), overflow)
+        with spans.span("unit.launch"):
+            with spans.stage("dev.kernel"):
+                ev, nev = parse_events(*args)
+            if not self.fold:
+                return ev, nev, overflow
+            skip, fargs = fold_args(args, ev, nev, overflow)
+            with spans.stage("dev.fold"):
+                stats, status = fold_stats(*fargs)
+            return torch.cat([stats, status[..., None],
+                              skip[..., None].to(torch.int32)], 2)
+
+    def collect(self, handles, spans=OFF):
+        if self.fold:
+            return FoldedLogs.download(handles, spans)
+        return super().collect(handles, spans)
 
 
 class BigRoute(_Route):
@@ -753,6 +807,14 @@ class EventLogs:
         """First record of pair (g, b)'s log in `ev`."""
         return self.off[g, b]
 
+    def settle(self, pairs, out, rejected):
+        """(the log lengths of a unit's `pairs`, -1 without a log; the
+        arguments of its ``UnitReplay`` call: every pair, its log replayed
+        or, without one, parsed natively; 0 pairs folded)."""
+        pg, pr, pq, pslot, pb = pairs
+        nev = self.nev[pg, pb]
+        return nev, (pr, pq, pslot, nev, self.off[pg, pb], self.ev), 0
+
 
 def _download_logs(ev, nev, cap, overflow=None, spans=OFF) -> EventLogs:
     """``EventLogs`` of a dispatch's (ev, nev): a pair keeps its first nev
@@ -792,6 +854,51 @@ def _download_logs(ev, nev, cap, overflow=None, spans=OFF) -> EventLogs:
     return EventLogs(block, nev_h, off.reshape(G, B), t1 - t0)
 
 
+class FoldedLogs:
+    """A downloaded dispatch whose logs were folded on the device: `block`
+    (G, B, 5) int32, each pair's triple, the fold's status and its skip
+    flag (``GroupRoute.dispatch``); `sync_s`, the host seconds the
+    download waited for the device."""
+
+    __slots__ = ("block", "sync_s")
+
+    def __init__(self, block: np.ndarray, sync_s: float = 0.0):
+        self.block, self.sync_s = block, sync_s
+
+    @classmethod
+    def download(cls, block, spans=OFF) -> FoldedLogs:
+        """One copy of the device's `block`. `spans` records the wait for
+        the unit's own kernels (``unit.sync_own``, on a card), the copy
+        with the wait for the work queued after them (``unit.sync_ahead``)
+        and the host's part (``unit.copy``)."""
+        t0 = time.perf_counter()
+        t_own = spans.wait_own(t0)
+        out = block.cpu().numpy()
+        t1 = time.perf_counter()
+        spans.host("unit.sync_ahead", t_own, t1)
+        spans.host("unit.copy", t1)
+        return cls(out, t1 - t0)
+
+    def settle(self, pairs, out, rejected):
+        """Writes the folded triples of a unit's `pairs` into `out` at
+        their slots and appends the (r, q) of the logs the fold rejected
+        (status -1: a replay mismatch, not repaired) to `rejected`;
+        returns (-1 for each pair without a log, else 0; the arguments of
+        the ``UnitReplay`` call that parses those pairs natively, or None
+        where there are none; the pairs folded)."""
+        pg, pr, pq, pslot, pb = pairs
+        got = self.block[pg, pb]
+        skip = got[:, 4] != 0
+        ok, bad = ~skip & (got[:, 3] == 0), ~skip & (got[:, 3] != 0)
+        out[pslot[ok]] = got[ok, :3]
+        rejected.extend(zip(pr[bad].tolist(), pq[bad].tolist()))
+        nev = np.where(skip, -1, 0).astype(np.int32)
+        fb = np.flatnonzero(skip)
+        unit = (pr[fb], pq[fb], pslot[fb], nev[fb],
+                np.zeros(len(fb), np.int64)) if len(fb) else None
+        return nev, unit, int(ok.sum())
+
+
 # ---- all-vs-all ------------------------------------------------------------
 
 def all2all_cuda(codes, params, filter_csr=None, progress=None,
@@ -804,10 +911,15 @@ def all2all_cuda(codes, params, filter_csr=None, progress=None,
     entries (repeats allowed) that units go round-robin over, two in
     flight and one live index each. `card_share` processes drive the
     card (``big_launch_shape``). Each downloaded unit is replayed by one
-    native call on a pool of `replay_threads` (all cores but one).
+    native call on a pool of `replay_threads` (all cores but one), but a
+    group unit of a run without `region_path`: its logs are folded on the
+    device (``GroupRoute.fold``), its triples downloaded and written here,
+    and only its pairs without a log go to the pool, parsed natively.
 
-    `stats` receives kernel_pairs / big_pairs (pairs replayed from a
-    group / long-genome log), cap_fallbacks / big_cap_fallbacks (pairs
+    `stats` receives kernel_pairs / big_pairs (pairs parsed from a
+    group / long-genome log, folded or replayed), fold_pairs (of
+    kernel_pairs, the triples folded on the device), cap_fallbacks /
+    big_cap_fallbacks (pairs
     without a log: over EV_CAP / EV_CAP_BIG events, or an anchor bucket
     over CNT_CAP in the row) and big_fallback_pairs (their (r, q)),
     native_rows / native_row_pairs, big_rows, G_big / B_big (a
@@ -824,7 +936,8 @@ def all2all_cuda(codes, params, filter_csr=None, progress=None,
     ``engine.*``, each unit's ``unit.*`` and, on a card, ``dev.*``).
 
     Raises RuntimeError after the run when a kernel log failed the
-    replay's cross-check (a wrong stream; those pairs are not written).
+    cross-check of the replay or of the fold (a wrong stream; those pairs
+    are not written).
     """
     from . import parse_kernel
 
@@ -833,7 +946,7 @@ def all2all_cuda(codes, params, filter_csr=None, progress=None,
     n = len(codes)
     launches0 = parse_kernel.parse_events.launches
     big_launches0 = parse_kernel.parse_events_big.launches
-    st = dict(kernel_pairs=0, cap_fallbacks=0, big_pairs=0,
+    st = dict(kernel_pairs=0, fold_pairs=0, cap_fallbacks=0, big_pairs=0,
               big_cap_fallbacks=0, big_fallback_pairs=[], native_rows=0,
               native_row_pairs=0, big_rows=0, G_big=0, B_big=0,
               replay_mismatches=0, dispatches=0, launches=0, big_launches=0,
@@ -866,6 +979,8 @@ def all2all_cuda(codes, params, filter_csr=None, progress=None,
     if n:
         eng = CudaAll2All(codes, params, devices=devices, shape=query_shape(
             codes, ParseCfg.from_params(params).mrd))
+        # regions need the factor list: only the host replay gives it
+        eng.routes["group"].fold = region_path is None
         pl = eng.plan(filter_csr, card_share)
         st.update(big_rows=len(pl.rows.get("big", ())), G_big=eng.G_big,
                   B_big=eng.B_big)
@@ -873,6 +988,7 @@ def all2all_cuda(codes, params, filter_csr=None, progress=None,
     nthreads = replay_threads or max(2, (os.cpu_count() or 2) - 1)
     rf = open(region_path, "wb") if region_path else None
     done = [0, pl.seqs_done]        # pairs drained, rows done (Sequences%)
+    rejected = []                   # (r, q) of the logs the fold rejected
     try:
         rep = UnitReplay(codes, params, out, rf)
         with ThreadPoolExecutor(max_workers=nthreads) as pool:
@@ -883,19 +999,17 @@ def all2all_cuda(codes, params, filter_csr=None, progress=None,
             st["native_row_pairs"] = sum(len(w[0]) for _, w in pl.native)
 
             def drain(unit, route, handles, us):
-                pg, pr, pq, pslot, pb = unit.pairs
                 t0 = time.perf_counter()
-                logs = route.collect(handles, us)
+                got = route.collect(handles, us)
                 st["download_s"] += time.perf_counter() - t0
-                st["download_sync_s"] += logs.sync_s
+                st["download_sync_s"] += got.sync_s
                 us.resolve()
-                nev = logs.nev[pg, pb]
-                route.tally(st, pr, pq, nev)
-                futs.append(rep.submit(
-                    pool, pr, pq, pslot, nev, logs.offsets(pg, pb), logs.ev,
-                    threads=route.replay_threads(nthreads), queued=us.queue,
-                    replayed=us.replay))
-                done[0] += len(pr)
+                left = route.finish(st, got, unit.pairs, rep.out, rejected)
+                if left is not None:
+                    futs.append(rep.submit(
+                        pool, *left, threads=route.replay_threads(nthreads),
+                        queued=us.queue, replayed=us.replay))
+                done[0] += len(unit.pairs[1])
                 done[1] += pl.drained(unit.group)
                 if progress is not None:
                     progress(done[0], pl.total_pairs, done[1], n)
@@ -948,7 +1062,8 @@ def all2all_cuda(codes, params, filter_csr=None, progress=None,
         if rf is not None:
             rf.close()
 
-    st.update(replay_mismatches=rep.replay_mismatches,
+    mismatched = rep.mismatched + rejected
+    st.update(replay_mismatches=len(mismatched),
               replay_c_s=rep.c_s, replay_wall_s=rep.wall_s,
               replay_pairs=rep.pairs,
               launches=parse_kernel.parse_events.launches - launches0,
@@ -965,5 +1080,5 @@ def all2all_cuda(codes, params, filter_csr=None, progress=None,
         raise RuntimeError(
             f"lz-ani-torch: {st['replay_mismatches']} kernel event logs "
             f"failed the replay cross-check (first pairs (r, q): "
-            f"{rep.mismatched[:5]}); the kernel's output is wrong")
+            f"{mismatched[:5]}); the kernel's output is wrong")
     return out

@@ -39,7 +39,7 @@ import torch
 from ..core import native_engine
 from . import fold_stats as fold_kernel, parse_kernel
 from .cuda_engine import (CudaAll2All, CudaRefIndex,
-                          device_envelope_reason, query_shape)
+                          device_envelope_reason, fold_args, query_shape)
 from .fold_stats import fold_stats
 from .parse import ParseCfg
 from .parse_kernel import parse_events
@@ -87,15 +87,12 @@ class RefIndexJax:
         ``rows_args`` output; device tensors, nothing synchronised.
         `spans` records ``row.launch`` and the stages ``dev.kernel`` (the
         parse) and ``dev.fold``."""
-        refbuf, qbuf, _, _, _, _, dsz, nrs, cfg, cap = args
         with spans.span("row.launch"):
             with spans.stage("dev.kernel"):
                 ev, nev = parse_events(*args)
-            skip = overflow | (nev < 0) | (nev > cap)
-            nev = torch.where(skip, -1, nev)
+            skip, fargs = fold_args(args, ev, nev, overflow)
             with spans.stage("dev.fold"):
-                out = fold_stats(refbuf, qbuf, ev, nev, dsz, nrs, cfg,
-                                 want_factors)
+                out = fold_stats(*fargs, want_factors)
         return skip, out
 
     def collect(self, handles, query, spans=OFF) -> Batch:

@@ -105,7 +105,8 @@ class UnitSpans:
 
     def __init__(self, sp: Spans, k: int, dev):
         self.sp, self.k, self.dev = sp, k, dev
-        #: the event recorded right after the unit's kernel launch
+        #: the event recorded right after the unit's kernel launch, or
+        #: after its fold launch where the unit folds its logs
         self.own = None
 
     def host(self, name: str, t0: float, t1: float | None = None):
@@ -127,11 +128,11 @@ class UnitSpans:
         if ev0 is not None:
             ev1 = self.sp._event(self.dev)
             self.sp._pending[self.dev].append((name, self.k, ev0, ev1))
-            if name == "dev.kernel":
+            if name in ("dev.kernel", "dev.fold"):
                 self.own = ev1
 
     def wait_own(self, t0: float) -> float:
-        """Wait for the unit's own kernel (on a card), recording the wait
+        """Wait for the unit's own kernels (on a card), recording the wait
         from `t0` as ``unit.sync_own``; returns when the wait ended (`t0`
         where there is nothing to wait on)."""
         if self.own is None:

@@ -4,7 +4,9 @@ native oracle's, the group kernel's capacity semantics match. The fold
 kernel: stats, status and factors equal to its plain version on the
 edge inputs of test_torch_fold_kernel.py, on corrupted logs and on
 blocks of several warps, with its planes in shared or device memory and
-with a small ring. The wrappers count launches. Every test here is marked ``cuda`` and skips
+with a small ring. The wrappers count launches. The cuda engine's
+group route folds its logs on the card where no aln file is asked.
+Every test here is marked ``cuda`` and skips
 without a card. On a card:
 
     python -m pytest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
@@ -683,6 +685,52 @@ def test_all2all_cuda_two_entries_on_one_card(dev):
     assert len(st["device_units"]) == 2 and min(st["device_units"]) > 0
     assert st["launches"] == parse_events.launches - n0 == st["dispatches"]
     assert st["replay_mismatches"] == 0
+
+
+def test_the_fold_route_on_card_equals_native(dev, tmp_path):
+    """Without an aln file the CLI's cuda run folds every group unit on
+    the card: TSV and ids byte-equal to --backend native on 48 viral
+    genomes, every kernel pair folded and the host replaying only the
+    capacity fallbacks; with an aln file the same set is replayed on the
+    host (no pair folded), its aln rows equal to native's as a set."""
+    from lzani_tpu_torch import cli as tcli
+    from lzani_tpu_torch.ops import fold_stats as fk
+
+    names, codes = synth.viral_set(seed=7, n=48)
+    fa = str(tmp_path / "in.fna")
+    synth.write_fasta(fa, names, codes)
+
+    def run(backend, aln):
+        out = str(tmp_path / f"{backend}{int(aln)}.tsv")
+        argv = ["all2all", "--in-fasta", fa, "--out", out, "-t", "4",
+                "-V", "0", "--backend", backend]
+        if aln:
+            argv += ["--out-alignment", out + ".aln"]
+        rc, m = tcli.run(argv)
+        assert rc == 0
+        with open(out, "rb") as f1, open(out[:-4] + ".ids.tsv", "rb") as f2:
+            got = f1.read() + f2.read()
+        rows = None
+        if aln:
+            with open(out + ".aln") as fh:
+                rows = fh.read().splitlines()
+            rows = (rows[0], sorted(rows[1:]))
+        return got, rows, m.engine_stats
+
+    native = run("native", False)[0]
+    n0 = fk.fold_stats.launches
+    got, _, st = run("cuda", False)
+    assert got == native
+    assert st["fold_pairs"] == st["kernel_pairs"] > 0
+    assert st["replay_pairs"] == st["cap_fallbacks"]
+    assert fk.fold_stats.launches - n0 == st["dispatches"]
+    assert st["replay_mismatches"] == 0
+    native, native_aln, _ = run("native", True)
+    n0 = fk.fold_stats.launches
+    got, aln, st = run("cuda", True)
+    assert got == native and aln == native_aln
+    assert st["fold_pairs"] == 0 and fk.fold_stats.launches == n0
+    assert st["replay_pairs"] == st["kernel_pairs"] + st["cap_fallbacks"]
 
 
 #: the long-genome path's device stages and the span each one nests in

@@ -109,9 +109,11 @@ def test_finalizer_counts_replay_mismatches():
     assert tuple(out[0, 2]) == ne.parse_pair(codes[0], codes[3], p)[0]
 
 
-def test_replay_mismatch_fails_the_run(monkeypatch):
+@pytest.mark.parametrize("regions", [True, False])
+def test_replay_mismatch_fails_the_run(regions, monkeypatch, tmp_path):
     """A kernel whose logs the replay rejects fails all2all_cuda; the
-    stats still report how many pairs mismatched."""
+    stats still report how many pairs mismatched. With a region file the
+    host replay rejects them, without one the fold on the device."""
     real = tce.parse_events
 
     def wrong_ext(*args, **kw):
@@ -122,10 +124,14 @@ def test_replay_mismatch_fails_the_run(monkeypatch):
     monkeypatch.setattr(tce, "parse_events", wrong_ext)
     codes = _codes(8)
     st = {}
+    rp = str(tmp_path / "r.bin") if regions else None
     with pytest.raises(RuntimeError, match="replay cross-check"):
-        tce.all2all_cuda(codes, Params(), device=CPU, stats=st)
+        tce.all2all_cuda(codes, Params(), device=CPU, stats=st,
+                         region_path=rp)
     assert st["replay_mismatches"] > 0
     assert st["replay_mismatches"] <= st["kernel_pairs"]
+    assert st["fold_pairs"] + st["replay_mismatches"] <= st["kernel_pairs"]
+    assert (st["replay_pairs"] > 0) == regions
 
 
 @pytest.mark.parametrize("mal,msl,why", [

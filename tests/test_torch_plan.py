@@ -171,7 +171,8 @@ def test_hybrid_cuts_a_group_as_the_engine_plans_it(case, monkeypatch):
 #: first query or None where gathered), in order) on the mixed set over
 #: two entries, as the engine gave them before its routes shared one
 #: interface (EV_CAP 3, a long-genome budget of 2 MiB: 2 references x 2
-#: queries a launch)
+#: queries a launch), with a region file: every unit is replayed on the
+#: host
 COUNTERS = {
     "dense": dict(dispatches=14, launches=0, big_launches=0, kernel_pairs=47,
                   big_pairs=40, cap_fallbacks=13, big_cap_fallbacks=0,
@@ -195,7 +196,7 @@ DISPATCHES = {
 
 
 @pytest.mark.parametrize("case", sorted(COUNTERS))
-def test_all2all_cuda_counters_on_a_mixed_set(case, monkeypatch):
+def test_all2all_cuda_counters_on_a_mixed_set(case, monkeypatch, tmp_path):
     codes, p = _mixed_set(), Params()
     _route_mixed(monkeypatch, codes, p)
     monkeypatch.setattr(tce.CudaAll2All, "EV_CAP", 3)
@@ -210,8 +211,9 @@ def test_all2all_cuda_counters_on_a_mixed_set(case, monkeypatch):
         monkeypatch.setattr(cls, "dispatch", spy)
     st = {}
     out = tce.all2all_cuda(codes, p, filter_csr=csr, devices=[CPU, CPU],
-                           stats=st)
+                           stats=st, region_path=str(tmp_path / "r.bin"))
     assert np.array_equal(out, tne.all2all(codes, p, filter_csr=csr))
     assert {k: st[k] for k in COUNTERS[case]} == COUNTERS[case]
+    assert st["fold_pairs"] == 0
     assert st["big_fallback_pairs"] == [] and st["replay_mismatches"] == 0
     assert dispatched == DISPATCHES[case]

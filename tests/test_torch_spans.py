@@ -47,11 +47,19 @@ def _codes(seed, n=7, length=600):
 
 
 def _params(path):
-    """The group path, or (mal > 13) the long-genome path."""
+    """The group path ("group" replayed, "fold" folded on the device), or
+    (mal > 13) the long-genome path."""
     p = Params()
     if path == "big":
         p.min_anchor_len, p.min_seed_len = 14, 9
     return p
+
+
+def _regions(path, tmp_path):
+    """The region file of a run on `path`: the group path's logs are
+    replayed on the host only where regions are asked."""
+    return {} if path == "fold" else {
+        "region_path": str(tmp_path / "regions.bin")}
 
 
 class _NoEvent:
@@ -86,9 +94,11 @@ def _traced(codes, p, **kw):
     return out, st
 
 
-@pytest.mark.parametrize("path", ["group", "big"])
-def test_each_unit_has_its_spans_inside_the_loop(path):
-    _, st = _traced(_codes(2), _params(path))
+@pytest.mark.parametrize("path", ["group", "big", "fold"])
+def test_each_unit_has_its_spans_inside_the_loop(path, tmp_path):
+    """Each unit's spans, once each; a folded unit has no pair for the
+    pool, so no ``unit.queue`` or ``unit.replay``."""
+    _, st = _traced(_codes(2), _params(path), **_regions(path, tmp_path))
     sp = st["spans"]
     assert all(len(s) == 5 and s[2] <= s[3] for s in sp)
     eng = {s[0]: s for s in sp if s[1] is None}
@@ -103,6 +113,10 @@ def test_each_unit_has_its_spans_inside_the_loop(path):
     assert {s[1] for s in units} == set(range(n))
     for k in range(n):
         names = sorted(s[0] for s in units if s[1] == k)
+        if path == "fold":
+            assert all(names.count(x) == (x not in POOL_SPANS)
+                       for x in UNIT_SPANS), (k, names)
+            continue
         assert all(names.count(x) == 1 for x in UNIT_SPANS), (k, names)
         queue, replay = (next(s for s in units if s[1] == k and s[0] == x)
                          for x in POOL_SPANS)
@@ -119,9 +133,9 @@ def test_each_unit_has_its_spans_inside_the_loop(path):
     assert sum(s[0] == "unit.index" for s in units) >= 1
 
 
-@pytest.mark.parametrize("path", ["group", "big"])
-def test_spans_add_up_to_the_counters(path):
-    _, st = _traced(_codes(3), _params(path))
+@pytest.mark.parametrize("path", ["group", "big", "fold"])
+def test_spans_add_up_to_the_counters(path, tmp_path):
+    _, st = _traced(_codes(3), _params(path), **_regions(path, tmp_path))
     total = {}
     for name, _, t0, t1, _ in st["spans"]:
         total[name] = total.get(name, 0.0) + (t1 - t0)
@@ -134,8 +148,13 @@ def test_spans_add_up_to_the_counters(path):
     assert total["engine.setup"] == pytest.approx(st["setup_s"], abs=1e-9)
     assert total["engine.replay_tail"] == pytest.approx(
         st["replay_tail_s"], abs=1e-9)
-    # each unit's replay span holds its native call
     assert st["native_rows"] == 0
+    if path == "fold":
+        # no pair left for the pool: no replay call, no replay span
+        assert "unit.replay" not in total and st["replay_c_s"] == 0
+        assert st["fold_pairs"] == st["kernel_pairs"] > 0
+        return
+    # each unit's replay span holds its native call
     assert total["unit.replay"] >= st["replay_c_s"] > 0
 
 
@@ -210,8 +229,13 @@ def test_a_traced_harness_run_reports_the_span_metrics(tmp_path):
                       device="cpu")
     assert out["correct"], out["checks"]
     got = out["metrics"]
+    # every pair of the tiny cell is folded: the pool gets no unit, so
+    # replay.queue_s has nothing to read
     for m in HOST_METRICS:
-        assert got[m]["unit"] == "s" and got[m]["value"] >= 0, m
+        if m != "replay.queue_s":
+            assert got[m]["unit"] == "s" and got[m]["value"] >= 0, m
+    assert "replay.queue_s" not in got
+    assert got["engine.fold_share"] == {"value": 100.0, "unit": "%"}
     assert not set(DEVICE_METRICS) & set(got)
     assert got["engine.sync_ahead_s"]["value"] == pytest.approx(
         got["engine.download_sync_s"]["value"], rel=1e-6)
@@ -527,38 +551,49 @@ def test_the_automaton_roofline_reads_its_two_kernels(capsys):
 # --- on a card -------------------------------------------------------------
 
 @pytest.mark.cuda
-def test_device_spans_share_the_hosts_clock(monkeypatch):
+@pytest.mark.parametrize("path", ["group", "fold"])
+def test_device_spans_share_the_hosts_clock(path, monkeypatch, tmp_path):
     """Each unit's kernel (``dev.kernel``) starts after its launch began
     on the host and ends before the host's wait for it ended, to 0.2 ms;
-    with spans off no CUDA event is made."""
+    a folded unit's ``dev.fold`` follows its kernel, inside the same
+    wait; with spans off no CUDA event is made."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     dev = torch.device("cuda", 0)
     _, codes = synth.viral_set(seed=5, n=24)
     p = Params()
     st = {}
+    kw = _regions(path, tmp_path)
     with profile():
-        ref = tce.all2all_cuda(codes, p, device=dev, stats=st)
+        ref = tce.all2all_cuda(codes, p, device=dev, stats=st, **kw)
     by = {}
     for s in st["spans"]:
         by.setdefault(s[1], {})[s[0]] = s
     n = st["dispatches"]
     assert n >= 2
+    want = ("dev.prep", "dev.kernel", "unit.sync_own") + (
+        ("dev.fold",) + tuple(x for x in UNIT_SPANS if x not in POOL_SPANS)
+        if path == "fold" else ("dev.compact",) + UNIT_SPANS)
     for k in range(n):
         u = by[k]
-        for name in ("dev.prep", "dev.kernel", "dev.compact",
-                     "unit.sync_own") + UNIT_SPANS:
+        for name in want:
             assert name in u, (k, name)
         assert u["dev.kernel"][4] == str(dev)
         assert u["dev.kernel"][2] >= u["unit.launch"][2] - 2e-4, k
         assert u["dev.kernel"][3] <= u["unit.sync_own"][3] + 2e-4, k
+        if path == "fold":
+            assert u["dev.fold"][2] >= u["dev.kernel"][3] - 2e-4, k
+            assert u["dev.fold"][3] <= u["unit.sync_own"][3] + 2e-4, k
+            assert "dev.compact" not in u, k
     sync = sum(s[3] - s[2] for s in st["spans"]
                if s[0] in ("unit.sync_own", "unit.sync_ahead"))
     assert sync == pytest.approx(st["download_sync_s"], abs=1e-9)
     assert any(s[0] == "dev.join" for s in st["spans"])
     monkeypatch.setattr(torch.cuda, "Event", _NoEvent)
     st2 = {}
-    out = tce.all2all_cuda(codes, p, device=dev, stats=st2)
+    if kw:
+        kw = {"region_path": str(tmp_path / "off.bin")}
+    out = tce.all2all_cuda(codes, p, device=dev, stats=st2, **kw)
     assert "spans" not in st2 and np.array_equal(out, ref)
 
 
